@@ -1,0 +1,562 @@
+// Device layer of the port's kernels: the BN254 base field in registers,
+// the Fq2/Fq6/Fq12 tower and the G2 line steps over it.
+//
+// Counterpart of bn254_tpu/pallas_fused.py's in-kernel helpers (KCtx,
+// kfq2_*, kfq6_*, kfq12_*, kg2_*), with the same formulas in the same
+// order as bn254_tpu/tower.py and pairing_jax.py.
+//
+// Representation.  In memory an Fq value is 16 little-endian 16-bit limbs
+// of its Montgomery residue (R = 2^256), one int32 per limb, at address
+// (c * 16 + k) * B + lane for coordinate c, limb k: neighbouring threads
+// (lanes) read neighbouring words, so every load and store is coalesced.
+// In registers it is 8 little-endian 32-bit words; since R = 2^256 either
+// split holds the same Montgomery value.
+//
+// Arithmetic.  Montgomery CIOS over 32-bit words with 64-bit accumulators
+// in plain C (each step one 32x32->64 multiply-add); every value is kept
+// fully reduced after each op (no lazy reduction), so the outputs are the
+// JAX package's canonical limbs bit for bit.
+//
+// Code size.  Fq ops are forced inline; the Fq2 products and everything
+// above them are static __noinline__ functions taking references, so each
+// tower formula is compiled once per translation unit (static: both .cu
+// files include this header and link into one library).  Their arguments
+// then live in local memory (L1-cached stack): local-memory traffic from
+// these spills, and the 64-bit integer multiplies, are what bound the
+// kernels.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "bn254_consts.h"  // generated at build time from bn254_tpu.spec
+
+namespace bn254 {
+
+struct Fq { uint32_t v[8]; };
+struct Fq2 { Fq c0, c1; };
+struct Fq6 { Fq2 c0, c1, c2; };
+struct Fq12 { Fq6 c0, c1; };
+struct G2J { Fq2 x, y, z; };                  // Jacobian point on the twist
+struct Line { Fq2 ell_0, ell_vw, ell_vv; };   // stored in this order
+struct Modulus { uint32_t q[8]; uint32_t qinv; };  // qinv = -q^-1 mod 2^32
+
+__device__ __forceinline__ Modulus fq_modulus() {
+  return Modulus{{BN254_FQ_Q}, BN254_FQ_QINV};
+}
+
+// ---------------------------------------------------------------------------
+// Memory layout
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int lane_index() {
+  return blockIdx.x * blockDim.x + threadIdx.x;
+}
+
+__device__ __forceinline__ void load(Fq& r, const int32_t* base, int c, int B, int lane) {
+  const int32_t* p = base + (size_t)c * 16 * B + lane;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    r.v[j] = (uint32_t)p[(size_t)(2 * j) * B] | ((uint32_t)p[(size_t)(2 * j + 1) * B] << 16);
+}
+
+__device__ __forceinline__ void store(int32_t* base, int c, int B, int lane, const Fq& a) {
+  int32_t* p = base + (size_t)c * 16 * B + lane;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    p[(size_t)(2 * j) * B] = (int32_t)(a.v[j] & 0xFFFFu);
+    p[(size_t)(2 * j + 1) * B] = (int32_t)(a.v[j] >> 16);
+  }
+}
+
+__device__ __forceinline__ void load(Fq2& r, const int32_t* base, int c, int B, int lane) {
+  load(r.c0, base, c, B, lane);
+  load(r.c1, base, c + 1, B, lane);
+}
+
+__device__ __forceinline__ void store(int32_t* base, int c, int B, int lane, const Fq2& a) {
+  store(base, c, B, lane, a.c0);
+  store(base, c + 1, B, lane, a.c1);
+}
+
+__device__ __forceinline__ void load(Fq12& r, const int32_t* base, int B, int lane) {
+  load(r.c0.c0, base, 0, B, lane); load(r.c0.c1, base, 2, B, lane);
+  load(r.c0.c2, base, 4, B, lane); load(r.c1.c0, base, 6, B, lane);
+  load(r.c1.c1, base, 8, B, lane); load(r.c1.c2, base, 10, B, lane);
+}
+
+__device__ __forceinline__ void store(int32_t* base, int B, int lane, const Fq12& a) {
+  store(base, 0, B, lane, a.c0.c0); store(base, 2, B, lane, a.c0.c1);
+  store(base, 4, B, lane, a.c0.c2); store(base, 6, B, lane, a.c1.c0);
+  store(base, 8, B, lane, a.c1.c1); store(base, 10, B, lane, a.c1.c2);
+}
+
+// three Fq2 at coordinates 0..5: a G2 point (x, y, z) or a Line
+__device__ __forceinline__ void load3(Fq2& a, Fq2& b, Fq2& c, const int32_t* base, int B, int lane) {
+  load(a, base, 0, B, lane); load(b, base, 2, B, lane); load(c, base, 4, B, lane);
+}
+
+__device__ __forceinline__ void store3(int32_t* base, int B, int lane, const Fq2& a,
+                                       const Fq2& b, const Fq2& c) {
+  store(base, 0, B, lane, a); store(base, 2, B, lane, b); store(base, 4, B, lane, c);
+}
+
+// ---------------------------------------------------------------------------
+// Fq (any modulus < 2^254 for mont_mul; the tower uses Fq's)
+// ---------------------------------------------------------------------------
+
+// t - q if t >= q else t
+__device__ __forceinline__ void cond_sub(uint32_t t[8], const Modulus& m) {
+  uint32_t d[8];
+  uint32_t br = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint64_t x = (uint64_t)t[j] - m.q[j] - br;
+    d[j] = (uint32_t)x;
+    br = (uint32_t)(x >> 63);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) t[j] = br ? t[j] : d[j];
+}
+
+// a * b * 2^-256 mod q (CIOS); inputs reduced, output reduced.
+__device__ __forceinline__ void mont_mul(Fq& r, const Fq& a, const Fq& b, const Modulus& m) {
+  uint32_t t[10];
+#pragma unroll
+  for (int j = 0; j < 10; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint64_t s = (uint64_t)a.v[j] * b.v[i] + t[j] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[8] + c;
+    t[8] = (uint32_t)s;
+    t[9] = (uint32_t)(s >> 32);
+    uint32_t mm = t[0] * m.qinv;
+    s = (uint64_t)mm * m.q[0] + t[0];
+    c = s >> 32;
+#pragma unroll
+    for (int j = 1; j < 8; ++j) {
+      s = (uint64_t)mm * m.q[j] + t[j] + c;
+      t[j - 1] = (uint32_t)s;
+      c = s >> 32;
+    }
+    s = (uint64_t)t[8] + c;
+    t[7] = (uint32_t)s;
+    t[8] = t[9] + (uint32_t)(s >> 32);
+  }
+  // t < 2q < 2^256 here, so t[8] == 0
+  Fq out;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) out.v[j] = t[j];
+  cond_sub(out.v, m);
+  r = out;
+}
+
+__device__ __forceinline__ void add(Fq& r, const Fq& a, const Fq& b, const Modulus& m) {
+  Fq s;
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint64_t x = (uint64_t)a.v[j] + b.v[j] + c;
+    s.v[j] = (uint32_t)x;
+    c = x >> 32;
+  }
+  cond_sub(s.v, m);  // a + b < 2q < 2^256: no carry out
+  r = s;
+}
+
+__device__ __forceinline__ void sub(Fq& r, const Fq& a, const Fq& b, const Modulus& m) {
+  Fq s;
+  uint32_t br = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint64_t x = (uint64_t)a.v[j] - b.v[j] - br;
+    s.v[j] = (uint32_t)x;
+    br = (uint32_t)(x >> 63);
+  }
+  uint64_t c = 0;  // a < b: add q back (the 2^256 wrap drops out)
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint64_t x = (uint64_t)s.v[j] + (br ? m.q[j] : 0u) + c;
+    s.v[j] = (uint32_t)x;
+    c = x >> 32;
+  }
+  r = s;
+}
+
+__device__ __forceinline__ void neg(Fq& r, const Fq& a, const Modulus& m) {
+  Fq z;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) z.v[j] = 0;
+  sub(r, z, a, m);
+}
+
+// Fq ops on the base field
+__device__ __forceinline__ void fq_mul(Fq& r, const Fq& a, const Fq& b) { mont_mul(r, a, b, fq_modulus()); }
+__device__ __forceinline__ void fq_add(Fq& r, const Fq& a, const Fq& b) { add(r, a, b, fq_modulus()); }
+__device__ __forceinline__ void fq_sub(Fq& r, const Fq& a, const Fq& b) { sub(r, a, b, fq_modulus()); }
+__device__ __forceinline__ void fq_neg(Fq& r, const Fq& a) { neg(r, a, fq_modulus()); }
+
+__device__ __forceinline__ Fq fq_const_one() { return Fq{{BN254_FQ_ONE}}; }
+__device__ __forceinline__ Fq fq_const_zero() { return Fq{{0, 0, 0, 0, 0, 0, 0, 0}}; }
+
+// ---------------------------------------------------------------------------
+// Fq2 = Fq[i]/(i^2 + 1)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void fq2_add(Fq2& r, const Fq2& a, const Fq2& b) {
+  fq_add(r.c0, a.c0, b.c0); fq_add(r.c1, a.c1, b.c1);
+}
+__device__ __forceinline__ void fq2_sub(Fq2& r, const Fq2& a, const Fq2& b) {
+  fq_sub(r.c0, a.c0, b.c0); fq_sub(r.c1, a.c1, b.c1);
+}
+__device__ __forceinline__ void fq2_neg(Fq2& r, const Fq2& a) {
+  fq_neg(r.c0, a.c0); fq_neg(r.c1, a.c1);
+}
+
+// Karatsuba with i^2 = -1 (fq2.rs:133-149): 3 products
+static __device__ __noinline__ void fq2_mul(Fq2& r, const Fq2& a, const Fq2& b) {
+  Fq aa, bb, sa, sb, cross, c0, c1;
+  fq_mul(aa, a.c0, b.c0);
+  fq_mul(bb, a.c1, b.c1);
+  fq_add(sa, a.c0, a.c1);
+  fq_add(sb, b.c0, b.c1);
+  fq_mul(cross, sa, sb);
+  fq_sub(c0, aa, bb);
+  fq_sub(c1, cross, aa);
+  fq_sub(c1, c1, bb);
+  r.c0 = c0; r.c1 = c1;
+}
+
+// complex squaring (fq2.rs:105-117): 2 products
+static __device__ __noinline__ void fq2_sqr(Fq2& r, const Fq2& a) {
+  Fq ab, s, d, t;
+  fq_mul(ab, a.c0, a.c1);
+  fq_add(s, a.c0, a.c1);
+  fq_sub(d, a.c0, a.c1);
+  fq_mul(t, s, d);
+  r.c0 = t;
+  fq_add(r.c1, ab, ab);
+}
+
+// scale by an Fq element (fq2.rs:48)
+static __device__ __noinline__ void fq2_scale(Fq2& r, const Fq2& a, const Fq& k) {
+  Fq c0, c1;
+  fq_mul(c0, a.c0, k);
+  fq_mul(c1, a.c1, k);
+  r.c0 = c0; r.c1 = c1;
+}
+
+// a * (9 + i) = (9 a0 - a1, 9 a1 + a0), 9x = 8x + x
+static __device__ __noinline__ void fq2_mul_by_xi(Fq2& r, const Fq2& a) {
+  Fq2 d;
+  fq2_add(d, a, a);
+  fq2_add(d, d, d);
+  fq2_add(d, d, d);
+  fq2_add(d, d, a);
+  Fq c0, c1;
+  fq_sub(c0, d.c0, a.c1);
+  fq_add(c1, d.c1, a.c0);
+  r.c0 = c0; r.c1 = c1;
+}
+
+// ---------------------------------------------------------------------------
+// Fq6 = Fq2[v]/(v^3 - xi)
+// ---------------------------------------------------------------------------
+
+static __device__ __noinline__ void fq6_add(Fq6& r, const Fq6& a, const Fq6& b) {
+  fq2_add(r.c0, a.c0, b.c0); fq2_add(r.c1, a.c1, b.c1); fq2_add(r.c2, a.c2, b.c2);
+}
+static __device__ __noinline__ void fq6_sub(Fq6& r, const Fq6& a, const Fq6& b) {
+  fq2_sub(r.c0, a.c0, b.c0); fq2_sub(r.c1, a.c1, b.c1); fq2_sub(r.c2, a.c2, b.c2);
+}
+static __device__ __noinline__ void fq6_neg(Fq6& r, const Fq6& a) {
+  fq2_neg(r.c0, a.c0); fq2_neg(r.c1, a.c1); fq2_neg(r.c2, a.c2);
+}
+
+// v * (c0 + c1 v + c2 v^2) = xi c2 + c0 v + c1 v^2 (fq6.rs:109-115)
+static __device__ __noinline__ void fq6_mul_by_nonresidue(Fq6& r, const Fq6& a) {
+  Fq2 c0;
+  fq2_mul_by_xi(c0, a.c2);
+  Fq2 c1 = a.c0, c2 = a.c1;
+  r.c0 = c0; r.c1 = c1; r.c2 = c2;
+}
+
+// Devegili et al. interpolation (fq6.rs:194-208): 6 Fq2 products
+static __device__ __noinline__ void fq6_mul(Fq6& r, const Fq6& a, const Fq6& b) {
+  Fq2 a_a, b_b, c_c, s, t, u, c0, c1, c2;
+  fq2_mul(a_a, a.c0, b.c0);
+  fq2_mul(b_b, a.c1, b.c1);
+  fq2_mul(c_c, a.c2, b.c2);
+
+  fq2_add(s, a.c1, a.c2);
+  fq2_add(t, b.c1, b.c2);
+  fq2_mul(u, s, t);
+  fq2_sub(u, u, b_b);
+  fq2_sub(u, u, c_c);
+  fq2_mul_by_xi(u, u);
+  fq2_add(c0, u, a_a);
+
+  fq2_add(s, a.c0, a.c1);
+  fq2_add(t, b.c0, b.c1);
+  fq2_mul(u, s, t);
+  fq2_sub(u, u, a_a);
+  fq2_sub(u, u, b_b);
+  fq2_mul_by_xi(s, c_c);
+  fq2_add(c1, u, s);
+
+  fq2_add(s, a.c0, a.c2);
+  fq2_add(t, b.c0, b.c2);
+  fq2_mul(u, s, t);
+  fq2_sub(u, u, a_a);
+  fq2_add(u, u, b_b);
+  fq2_sub(c2, u, c_c);
+  r.c0 = c0; r.c1 = c1; r.c2 = c2;
+}
+
+// ---------------------------------------------------------------------------
+// Fq12 = Fq6[w]/(w^2 - v)
+// ---------------------------------------------------------------------------
+
+static __device__ __noinline__ void fq12_conj(Fq12& r, const Fq12& a) {
+  r.c0 = a.c0;
+  fq6_neg(r.c1, a.c1);
+}
+
+// Karatsuba over Fq6 (fq12.rs:316-328)
+static __device__ __noinline__ void fq12_mul(Fq12& r, const Fq12& a, const Fq12& b) {
+  Fq6 aa, bb, s, t, cross, c0, c1;
+  fq6_mul(aa, a.c0, b.c0);
+  fq6_mul(bb, a.c1, b.c1);
+  fq6_add(s, a.c0, a.c1);
+  fq6_add(t, b.c0, b.c1);
+  fq6_mul(cross, s, t);
+  fq6_mul_by_nonresidue(c0, bb);
+  fq6_add(c0, c0, aa);
+  fq6_sub(c1, cross, aa);
+  fq6_sub(c1, c1, bb);
+  r.c0 = c0; r.c1 = c1;
+}
+
+// (fq12.rs:295-303)
+static __device__ __noinline__ void fq12_sqr(Fq12& r, const Fq12& a) {
+  Fq6 ab, s, t, m, c0, c1;
+  fq6_mul(ab, a.c0, a.c1);
+  fq6_mul_by_nonresidue(s, a.c1);
+  fq6_add(s, s, a.c0);
+  fq6_add(t, a.c0, a.c1);
+  fq6_mul(m, s, t);
+  fq6_sub(m, m, ab);
+  fq6_mul_by_nonresidue(s, ab);
+  fq6_sub(c0, m, s);
+  fq6_add(c1, ab, ab);
+  r.c0 = c0; r.c1 = c1;
+}
+
+// sparse line product, 13 Fq2 products (tower.fq12_mul_by_024,
+// fq12.rs:130-196): (x0, x2, x4) = (ell_0, ell_vv * px, ell_vw * py)
+static __device__ __noinline__ void fq12_mul_by_024(Fq12& r, const Fq12& a, const Fq2& x0,
+                                             const Fq2& x2, const Fq2& x4) {
+  const Fq2 &z0 = a.c0.c0, &z1 = a.c0.c1, &z2 = a.c0.c2;
+  const Fq2 &z3 = a.c1.c0, &z4 = a.c1.c1, &z5 = a.c1.c2;
+  Fq2 d0, d2, d4, t0, t1, t2, t3, t4, s0, s1, p;
+  Fq2 nz0, nz1, nz2, nz3, nz4, nz5;
+
+  fq2_mul(d0, z0, x0);
+  fq2_mul(d2, z2, x2);
+  fq2_mul(d4, z4, x4);
+  fq2_add(t2, z0, z4);
+  fq2_add(t1, z0, z2);
+  fq2_add(s0, z1, z3);
+  fq2_add(s0, s0, z5);
+
+  fq2_mul(s1, z1, x2);
+  fq2_add(t3, s1, d4);
+  fq2_mul_by_xi(t4, t3);
+  fq2_add(nz0, t4, d0);
+
+  fq2_mul(t3, z5, x4);
+  fq2_add(s1, s1, t3);
+  fq2_add(t3, t3, d2);
+  fq2_mul_by_xi(t4, t3);
+  fq2_mul(t3, z1, x0);
+  fq2_add(s1, s1, t3);
+  fq2_add(nz1, t4, t3);
+
+  fq2_add(t0, x0, x2);
+  fq2_mul(p, t1, t0);
+  fq2_sub(p, p, d0);
+  fq2_sub(t3, p, d2);
+  fq2_mul(t4, z3, x4);
+  fq2_add(s1, s1, t4);
+  fq2_add(nz2, t3, t4);
+
+  fq2_add(t0, z2, z4);
+  fq2_add(t1, x2, x4);
+  fq2_mul(p, t0, t1);
+  fq2_sub(p, p, d2);
+  fq2_sub(t3, p, d4);
+  fq2_mul_by_xi(t4, t3);
+  fq2_mul(t3, z3, x0);
+  fq2_add(s1, s1, t3);
+  fq2_add(nz3, t4, t3);
+
+  fq2_mul(t3, z5, x2);
+  fq2_add(s1, s1, t3);
+  fq2_mul_by_xi(t4, t3);
+  fq2_add(t0, x0, x4);
+  fq2_mul(p, t2, t0);
+  fq2_sub(p, p, d0);
+  fq2_sub(t3, p, d4);
+  fq2_add(nz4, t4, t3);
+
+  fq2_add(t0, x0, x2);
+  fq2_add(t0, t0, x4);
+  fq2_mul(p, s0, t0);
+  fq2_sub(nz5, p, s1);
+
+  r.c0.c0 = nz0; r.c0.c1 = nz1; r.c0.c2 = nz2;
+  r.c1.c0 = nz3; r.c1.c1 = nz4; r.c1.c2 = nz5;
+}
+
+// Granger-Scott squaring (fq12.rs:198-247): a true square only in the
+// cyclotomic subgroup, the same polynomial as tower.fq12_cyclotomic_sqr
+static __device__ __noinline__ void cyc_sq_pair(Fq2& ta, Fq2& tb, const Fq2& u, const Fq2& v) {
+  Fq2 tmp, s, t, x;
+  fq2_mul(tmp, u, v);
+  fq2_add(s, u, v);
+  fq2_mul_by_xi(t, v);
+  fq2_add(t, t, u);
+  fq2_mul(x, s, t);
+  fq2_sub(x, x, tmp);
+  fq2_mul_by_xi(t, tmp);
+  fq2_sub(ta, x, t);
+  fq2_add(tb, tmp, tmp);
+}
+
+// x = t -/+ base; 2x + t
+__device__ __forceinline__ void cyc_tri(Fq2& r, const Fq2& base, const Fq2& t, bool minus) {
+  Fq2 x;
+  if (minus) fq2_sub(x, t, base); else fq2_add(x, t, base);
+  fq2_add(x, x, x);
+  fq2_add(r, x, t);
+}
+
+static __device__ __noinline__ void fq12_cyclotomic_sqr(Fq12& r, const Fq12& a) {
+  const Fq2 &z0 = a.c0.c0, &z4 = a.c0.c1, &z3 = a.c0.c2;
+  const Fq2 &z2 = a.c1.c0, &z1 = a.c1.c1, &z5 = a.c1.c2;
+  Fq2 t0, t1, t2, t3, t4, t5, tmp;
+  cyc_sq_pair(t0, t1, z0, z1);
+  cyc_sq_pair(t2, t3, z2, z3);
+  cyc_sq_pair(t4, t5, z4, z5);
+  Fq2 nz0, nz1, nz2, nz3, nz4, nz5;
+  cyc_tri(nz0, z0, t0, true);
+  cyc_tri(nz1, z1, t1, false);
+  fq2_mul_by_xi(tmp, t5);
+  cyc_tri(nz2, z2, tmp, false);
+  cyc_tri(nz3, z3, t4, true);
+  cyc_tri(nz4, z4, t2, true);
+  cyc_tri(nz5, z5, t3, false);
+  r.c0.c0 = nz0; r.c0.c1 = nz4; r.c0.c2 = nz3;
+  r.c1.c0 = nz2; r.c1.c1 = nz1; r.c1.c2 = nz5;
+}
+
+// ---------------------------------------------------------------------------
+// G2 line steps (pairing_jax._doubling_step / _addition_step)
+// ---------------------------------------------------------------------------
+
+// Miller doubling step (mod.rs:754-776)
+static __device__ __noinline__ void g2_dbl_step(G2J& r, Line& l) {
+  const Fq two_inv = Fq{{BN254_FQ_TWO_INV}};
+  const Fq2 b2 = Fq2{Fq{{BN254_B2_C0}}, Fq{{BN254_B2_C1}}};
+  Fq2 a, b, c, d, e, f, g, h, i, j, e_sq, t, nx, ny, nz;
+  fq2_mul(t, r.x, r.y);
+  fq2_scale(a, t, two_inv);
+  fq2_sqr(b, r.y);
+  fq2_sqr(c, r.z);
+  fq2_add(d, c, c);
+  fq2_add(d, d, c);
+  fq2_mul(e, b2, d);
+  fq2_add(f, e, e);
+  fq2_add(f, f, e);
+  fq2_add(t, b, f);
+  fq2_scale(g, t, two_inv);
+  fq2_add(t, r.y, r.z);
+  fq2_sqr(h, t);
+  fq2_add(t, b, c);
+  fq2_sub(h, h, t);
+  fq2_sub(i, e, b);
+  fq2_sqr(j, r.x);
+  fq2_sqr(e_sq, e);
+
+  fq2_sub(t, b, f);
+  fq2_mul(nx, a, t);
+  fq2_sqr(ny, g);
+  fq2_add(t, e_sq, e_sq);
+  fq2_add(t, t, e_sq);
+  fq2_sub(ny, ny, t);
+  fq2_mul(nz, b, h);
+
+  fq2_mul_by_xi(l.ell_0, i);
+  fq2_neg(l.ell_vw, h);
+  fq2_add(t, j, j);
+  fq2_add(l.ell_vv, t, j);
+  r.x = nx; r.y = ny; r.z = nz;
+}
+
+// mixed addition step against an affine base (mod.rs:731-752)
+static __device__ __noinline__ void g2_add_step(G2J& r, Line& l, const Fq2& bx, const Fq2& by) {
+  Fq2 d, e, f, g, h, i, j, t, u, nx, ny, nz;
+  fq2_mul(t, r.z, bx);
+  fq2_sub(d, r.x, t);
+  fq2_mul(t, r.z, by);
+  fq2_sub(e, r.y, t);
+  fq2_sqr(f, d);
+  fq2_sqr(g, e);
+  fq2_mul(h, d, f);
+  fq2_mul(i, r.x, f);
+  fq2_mul(t, r.z, g);
+  fq2_add(t, t, h);
+  fq2_add(u, i, i);
+  fq2_sub(j, t, u);
+
+  fq2_mul(nx, d, j);
+  fq2_sub(t, i, j);
+  fq2_mul(ny, e, t);
+  fq2_mul(t, h, r.y);
+  fq2_sub(ny, ny, t);
+  fq2_mul(nz, r.z, h);
+
+  fq2_mul(t, e, bx);
+  fq2_mul(u, d, by);
+  fq2_sub(t, t, u);
+  fq2_mul_by_xi(l.ell_0, t);
+  l.ell_vw = d;
+  fq2_neg(l.ell_vv, e);
+  r.x = nx; r.y = ny; r.z = nz;
+}
+
+// f * line, with ell_vv * px and ell_vw * py folded in
+static __device__ __noinline__ void fold_line(Fq12& f, const Line& l, const Fq& px, const Fq& py) {
+  Fq2 x2, x4;
+  fq2_scale(x2, l.ell_vv, px);
+  fq2_scale(x4, l.ell_vw, py);
+  fq12_mul_by_024(f, f, l.ell_0, x2, x4);
+}
+
+}  // namespace bn254
+
+// Launch geometry shared by every kernel: one thread per batch lane,
+// 128-thread blocks, the ragged edge masked inside the kernel.  A C entry
+// launches on the caller's stream (B and stream are its last parameters)
+// and returns cudaGetLastError().
+#define BN254_THREADS 128
+#define BN254_LAUNCH(kernel, ...)                                                        \
+  kernel<<<((B) + BN254_THREADS - 1) / BN254_THREADS, BN254_THREADS, 0, stream>>>(      \
+      __VA_ARGS__, B);                                                                   \
+  return static_cast<int>(cudaGetLastError())

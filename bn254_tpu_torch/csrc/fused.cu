@@ -1,0 +1,209 @@
+// Fused tower-op kernels (queue rows 5-11), replacing the
+// bn254_tpu/pallas_fused.py kernels named beside each one below.
+//
+// One thread per batch lane, 128-thread blocks, the ragged edge masked.
+// A kernel reads its operands once, runs the whole formula (or the whole
+// ladder / Miller schedule) with every intermediate on the thread's
+// registers and stack, and writes its result once, as the TPU kernels
+// keep theirs in VMEM.  Step kinds and ladder digits come as a small int32
+// device array that every lane reads in the same order, so a warp never
+// diverges on them.
+//
+// Bound: integer multiply-adds (an Fq12 product is 54 Montgomery
+// products, about 7,000 32x32->64 multiply-adds) and the local-memory
+// traffic of the tower state (f alone is 12 Fq = 96 words, past what the
+// register file gives one thread, and the __noinline__ tower functions
+// pass their arguments through the stack).  This first design keeps the
+// arithmetic simple and exact (eager reduction, CIOS in C) and relies on
+// L1 to hold the stack.  ptxas gives fq_pow 40 registers and no stack, but
+// the Fq12 kernels 138-236 registers and 1-3 KB stack frames, so only two
+// or three 128-thread blocks fit an SM: per Montgomery product the Miller
+// kernel runs 2-2.6x and the cyclotomic ladder about 3.4x slower than
+// fq_pow (H100 80GB HBM3, 700 W, two runs).  Occupancy and the stack
+// traffic are what the next kernel work should attack.
+#include "bn254.cuh"
+
+using namespace bn254;
+
+namespace {
+
+// pallas_fused.py _pow_call_impl("fq_pow"): res = a; per digit square,
+// then multiply by a on a set bit.
+__global__ void k_fq_pow(const int32_t* __restrict__ digits, int n,
+                         const int32_t* __restrict__ a, int32_t* __restrict__ out, int B) {
+  int lane = lane_index();
+  if (lane >= B) return;
+  Fq base, res;
+  load(base, a, 0, B, lane);
+  res = base;
+  for (int i = 0; i < n; ++i) {
+    fq_mul(res, res, res);
+    if (digits[i]) fq_mul(res, res, base);
+  }
+  store(out, 0, B, lane, res);
+}
+
+// pallas_fused.py _miller_call_impl: the 85 scheduled steps.  kind 0:
+// f = f^2 and a doubling step; kind 1/2: mixed addition with +Q/-Q.  Each
+// step then folds its line into f.
+__global__ void k_miller_precompute(const int32_t* __restrict__ kinds, int n,
+                                    const int32_t* __restrict__ p,
+                                    const int32_t* __restrict__ q,
+                                    int32_t* __restrict__ f_out,
+                                    int32_t* __restrict__ r_out, int B) {
+  int lane = lane_index();
+  if (lane >= B) return;
+  Fq px, py;
+  load(px, p, 0, B, lane);
+  load(py, p, 1, B, lane);
+  Fq2 qx, qy, qy_neg;
+  load(qx, q, 0, B, lane);
+  load(qy, q, 2, B, lane);
+  fq2_neg(qy_neg, qy);
+
+  G2J r;
+  r.x = qx;
+  r.y = qy;
+  r.z.c0 = fq_const_one();
+  r.z.c1 = fq_const_zero();
+  Fq12 f;
+  Fq2 zero2;
+  zero2.c0 = fq_const_zero();
+  zero2.c1 = fq_const_zero();
+  f.c0.c0 = r.z;
+  f.c0.c1 = zero2; f.c0.c2 = zero2;
+  f.c1.c0 = zero2; f.c1.c1 = zero2; f.c1.c2 = zero2;
+
+  Line l;
+  for (int i = 0; i < n; ++i) {
+    int kind = kinds[i];
+    if (kind == 0) {
+      fq12_sqr(f, f);
+      g2_dbl_step(r, l);
+    } else {
+      g2_add_step(r, l, qx, kind == 1 ? qy : qy_neg);
+    }
+    fold_line(f, l, px, py);
+  }
+  store(f_out, B, lane, f);
+  store3(r_out, B, lane, r.x, r.y, r.z);
+}
+
+// pallas_fused.py _call_impl("g2_add_step")
+__global__ void k_g2_add_step(const int32_t* __restrict__ r_in,
+                              const int32_t* __restrict__ base,
+                              int32_t* __restrict__ r_out,
+                              int32_t* __restrict__ c_out, int B) {
+  int lane = lane_index();
+  if (lane >= B) return;
+  G2J r;
+  load3(r.x, r.y, r.z, r_in, B, lane);
+  Fq2 bx, by;
+  load(bx, base, 0, B, lane);
+  load(by, base, 2, B, lane);
+  Line l;
+  g2_add_step(r, l, bx, by);
+  store3(r_out, B, lane, r.x, r.y, r.z);
+  store3(c_out, B, lane, l.ell_0, l.ell_vw, l.ell_vv);
+}
+
+// pallas_fused.py _call_impl("fq12_fold_line")
+__global__ void k_fq12_fold_line(const int32_t* __restrict__ f_in,
+                                 const int32_t* __restrict__ c,
+                                 const int32_t* __restrict__ px_in,
+                                 const int32_t* __restrict__ py_in,
+                                 int32_t* __restrict__ out, int B) {
+  int lane = lane_index();
+  if (lane >= B) return;
+  Fq12 f;
+  load(f, f_in, B, lane);
+  Line l;
+  load3(l.ell_0, l.ell_vw, l.ell_vv, c, B, lane);
+  Fq px, py;
+  load(px, px_in, 0, B, lane);
+  load(py, py_in, 0, B, lane);
+  fold_line(f, l, px, py);
+  store(out, B, lane, f);
+}
+
+// pallas_fused.py _call_impl("fq12_mul")
+__global__ void k_fq12_mul(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                           int32_t* __restrict__ out, int B) {
+  int lane = lane_index();
+  if (lane >= B) return;
+  Fq12 x, y;
+  load(x, a, B, lane);
+  load(y, b, B, lane);
+  fq12_mul(x, x, y);
+  store(out, B, lane, x);
+}
+
+// pallas_fused.py _call_impl("fq12_cyc_sqr")
+__global__ void k_fq12_cyc_sqr(const int32_t* __restrict__ a, int32_t* __restrict__ out, int B) {
+  int lane = lane_index();
+  if (lane >= B) return;
+  Fq12 x;
+  load(x, a, B, lane);
+  fq12_cyclotomic_sqr(x, x);
+  store(out, B, lane, x);
+}
+
+// pallas_fused.py _pow_call_impl("fq12_cyc_pow"): res = a; per digit a
+// cyclotomic square, then digit 1 multiplies by a, digit 2 by conj(a).
+__global__ void k_fq12_cyc_pow(const int32_t* __restrict__ digits, int n,
+                               const int32_t* __restrict__ a, int32_t* __restrict__ out,
+                               int B) {
+  int lane = lane_index();
+  if (lane >= B) return;
+  Fq12 base, conj, res;
+  load(base, a, B, lane);
+  fq12_conj(conj, base);
+  res = base;
+  for (int i = 0; i < n; ++i) {
+    fq12_cyclotomic_sqr(res, res);
+    int d = digits[i];
+    if (d == 1) fq12_mul(res, res, base);
+    else if (d == 2) fq12_mul(res, res, conj);
+  }
+  store(out, B, lane, res);
+}
+
+}  // namespace
+
+extern "C" {
+
+int bn254_fq_pow(const int32_t* digits, int n, const int32_t* a, int32_t* out, int B,
+                 cudaStream_t stream) {
+  BN254_LAUNCH(k_fq_pow, digits, n, a, out);
+}
+
+int bn254_miller_precompute(const int32_t* kinds, int n, const int32_t* p, const int32_t* q,
+                            int32_t* f, int32_t* r, int B, cudaStream_t stream) {
+  BN254_LAUNCH(k_miller_precompute, kinds, n, p, q, f, r);
+}
+
+int bn254_g2_add_step(const int32_t* r, const int32_t* base, int32_t* r_out, int32_t* c_out,
+                      int B, cudaStream_t stream) {
+  BN254_LAUNCH(k_g2_add_step, r, base, r_out, c_out);
+}
+
+int bn254_fq12_fold_line(const int32_t* f, const int32_t* c, const int32_t* px,
+                         const int32_t* py, int32_t* out, int B, cudaStream_t stream) {
+  BN254_LAUNCH(k_fq12_fold_line, f, c, px, py, out);
+}
+
+int bn254_fq12_mul(const int32_t* a, const int32_t* b, int32_t* out, int B,
+                   cudaStream_t stream) {
+  BN254_LAUNCH(k_fq12_mul, a, b, out);
+}
+
+int bn254_fq12_cyc_sqr(const int32_t* a, int32_t* out, int B, cudaStream_t stream) {
+  BN254_LAUNCH(k_fq12_cyc_sqr, a, out);
+}
+
+int bn254_fq12_cyc_pow(const int32_t* digits, int n, const int32_t* a, int32_t* out, int B,
+                       cudaStream_t stream) {
+  BN254_LAUNCH(k_fq12_cyc_pow, digits, n, a, out);
+}
+
+}  // extern "C"

@@ -1,0 +1,429 @@
+"""Fused tower-op kernel wrappers — counterpart of
+bn254_tpu/pallas_fused.py (queue rows 5-11).
+
+Every wrapper takes packed contiguous ``[c, 16, B]`` int32 tensors (the
+``pallas_fused.pack`` layout: the tower pytree's Fq leaves stacked in
+order).  For a CUDA tensor it launches its kernel from csrc/fused.cu; for
+a CPU tensor it runs its plain version below; any other device raises.
+
+The plain versions are the same formulas as bn254_tpu.tower and
+pallas_fused's in-kernel helpers (kfq*, kg2_*), written over stacked
+tensors — Fq2 ``[..., 2, 16, B]``, Fq6 ``[..., 3, 2, 16, B]``, Fq12
+``[..., 2, 3, 2, 16, B]`` — so that the independent products of a formula
+go into one Montgomery call and its additions into a few.  Values are
+exact residues, so the regrouping does not change a single output bit.
+
+Pow ladders and the Miller schedule take their digits as a small int32
+array (the same for every lane, so warps do not diverge on the card).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import counts
+from . import limbs as L
+from . import mont_kernels as MK
+from ._build import check, launch, on_cuda
+from bn254_tpu.spec import constants as C
+
+_F = MK.FQ_MOD
+N = L.N_LIMBS
+
+
+# ---------------------------------------------------------------------------
+# Digit schedules (pallas_fused.py:1314-1335)
+# ---------------------------------------------------------------------------
+
+def _msb_bits(e: int) -> np.ndarray:
+    """MSB-first bits of e with the leading 1 dropped -> [nbits, 1] i32."""
+    nb = e.bit_length()
+    return np.array([[(e >> i) & 1] for i in range(nb - 2, -1, -1)],
+                    dtype=np.int32).reshape(-1, 1)
+
+
+def _naf_digits(e: int) -> np.ndarray:
+    """MSB-first NAF digits of e, leading 1 dropped -> [n, 1] i32 with
+    values {0, 1, 2}; 2 encodes -1 (multiply by the conjugate)."""
+    d = []
+    while e:
+        if e & 1:
+            w = 2 - (e % 4)           # 1 or -1
+            d.append(w)
+            e -= w
+        else:
+            d.append(0)
+        e >>= 1
+    assert d[-1] == 1
+    return np.array([[x if x >= 0 else 2] for x in reversed(d[:-1])],
+                    dtype=np.int32)
+
+
+BINARY_Z = _msb_bits(C.Z)      # 62 digits, 27 multiplies: any Fq12
+NAF_Z = _naf_digits(C.Z)       # 62 digits, 23 multiplies: cyclotomic only
+
+_DIGITS = {}
+
+
+def _digits_on(digits: np.ndarray, device):
+    key = (digits.tobytes(), device)
+    t = _DIGITS.get(key)
+    if t is None:
+        t = torch.tensor(np.ascontiguousarray(digits, dtype=np.int32).ravel(),
+                         device=device)
+        _DIGITS[key] = t
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Plain tower over stacked tensors
+# ---------------------------------------------------------------------------
+
+def _add(a, b):
+    return L.add_mod(a, b, _F)
+
+
+def _sub(a, b):
+    return L.sub_mod(a, b, _F)
+
+
+def _neg(a):
+    return L.neg_mod(a, _F)
+
+
+def _s(*xs, dim=-4):
+    return torch.stack(xs, dim)
+
+
+def _const(v: int, like):
+    """Montgomery form of the canonical int v, broadcast like [..., 16, B]."""
+    col = torch.tensor(_F.encode(v).astype(np.int32), device=like.device)[:, None]
+    return col.expand(like.shape).contiguous()
+
+
+def _xi(a):
+    """Fq2 times xi = 9 + i: (9 a0 - a1, 9 a1 + a0)."""
+    d = _add(a, a)
+    d = _add(d, d)
+    d = _add(d, d)
+    n0, n1 = _add(d, a).unbind(-3)
+    a0, a1 = a.unbind(-3)
+    return _s(_sub(n0, a1), _add(n1, a0), dim=-3)
+
+
+def _mul6(a, b):
+    """Devegili Fq6 product (fq6.rs:194-208): all 6 Fq2 products in one call."""
+    a0, a1, a2 = a.unbind(-4)
+    b0, b1, b2 = b.unbind(-4)
+    sa, sb = _add(_s(a1, a0, a0, b1, b0, b0), _s(a2, a1, a2, b2, b1, b2)).split(3, -4)
+    p = MK._fq2_mul(torch.cat([a, sa], -4), torch.cat([b, sb], -4))
+    a_a, b_b, c_c, x_bc, x_ab, x_ac = p.unbind(-4)
+    t_bc, t_ab, t_ac = _sub(_s(x_bc, x_ab, x_ac), _s(b_b, a_a, a_a)).unbind(-4)
+    u0, u1 = _sub(_s(t_bc, t_ab), _s(c_c, b_b)).unbind(-4)
+    xu0, xcc = _xi(_s(u0, c_c)).unbind(-4)
+    c0, c1 = _add(_s(xu0, u1), _s(a_a, xcc)).unbind(-4)
+    c2 = _sub(_add(t_ac, b_b), c_c)
+    return _s(c0, c1, c2)
+
+
+def _nonres6(a):
+    """v * (c0 + c1 v + c2 v^2) = xi c2 + c0 v + c1 v^2."""
+    a0, a1, a2 = a.unbind(-4)
+    return _s(_xi(a2), a0, a1)
+
+
+def _mul12(a, b):
+    """Karatsuba over Fq6 (fq12.rs:316-328): 3 Fq6 products in one call."""
+    a0, a1 = a.unbind(-5)
+    b0, b1 = b.unbind(-5)
+    sa, sb = _add(_s(a0, b0, dim=-5), _s(a1, b1, dim=-5)).unbind(-5)
+    aa, bb, cross = _mul6(_s(a0, a1, sa, dim=-5), _s(b0, b1, sb, dim=-5)).unbind(-5)
+    return _s(_add(_nonres6(bb), aa), _sub(_sub(cross, aa), bb), dim=-5)
+
+
+def _sqr12(a):
+    """Fq12 squaring (fq12.rs:295-303): its 2 Fq6 products in one call."""
+    a0, a1 = a.unbind(-5)
+    x, y = _add(_s(_nonres6(a1), a0, dim=-5), _s(a0, a1, dim=-5)).unbind(-5)
+    ab, m = _mul6(_s(a0, x, dim=-5), _s(a1, y, dim=-5)).unbind(-5)
+    return _s(_sub(_sub(m, ab), _nonres6(ab)), _add(ab, ab), dim=-5)
+
+
+def _conj12(a):
+    a0, a1 = a.unbind(-5)
+    return _s(a0, _neg(a1), dim=-5)
+
+
+def _mul_by_024(a, x0, x2, x4):
+    """Sparse line product (tower.fq12_mul_by_024, fq12.rs:130-196): the 13
+    Fq2 products in one call."""
+    (z0, z1, z2), (z3, z4, z5) = (t.unbind(-4) for t in a.unbind(-5))
+    z02, z24, z04, z13, x02, x24, x04 = _add(
+        _s(z0, z2, z0, z1, x0, x2, x0), _s(z2, z4, z4, z3, x2, x4, x4)).unbind(-4)
+    s0, x024 = _add(_s(z13, x02), _s(z5, x4)).unbind(-4)
+    p = MK._fq2_mul(_s(z0, z2, z4, z1, z5, z1, z02, z3, z24, z3, z5, z04, s0),
+                    _s(x0, x2, x4, x2, x4, x0, x02, x4, x24, x0, x2, x04, x024))
+    (d0, d2, d4, z1x2, z5x4, z1x0, t1t0, z3x4, t0t1, z3x0, z5x2, t2t0,
+     s0t0) = p.unbind(-4)
+    a0, a1 = _add(_s(z1x2, z5x4), _s(d4, d2)).unbind(-4)
+    b0, b1, b2 = _sub(_s(t1t0, t0t1, t2t0), _s(d0, d2, d0)).unbind(-4)
+    n2, c3, c4 = _sub(_s(b0, b1, b2), _s(d2, d4, d4)).unbind(-4)
+    x0_, x1_, x3_, x4_ = _xi(_s(a0, a1, c3, z5x2)).unbind(-4)
+    nz0, nz1, nz2, nz3, nz4 = _add(_s(x0_, x1_, n2, x3_, x4_),
+                                   _s(d0, z1x0, z3x4, z3x0, c4)).unbind(-4)
+    q0, q1, q2 = _add(_s(z1x2, z5x4, z1x0), _s(z3x4, z3x0, z5x2)).unbind(-4)
+    nz5 = _sub(s0t0, _add(_add(q0, q1), q2))
+    return _s(_s(nz0, nz1, nz2), _s(nz3, nz4, nz5), dim=-5)
+
+
+def _cyc_sqr(a):
+    """Granger-Scott cyclotomic squaring (fq12.rs:198-247), the same
+    polynomial as tower.fq12_cyclotomic_sqr (so equal on any input)."""
+    (z0, z4, z3), (z2, z1, z5) = (t.unbind(-4) for t in a.unbind(-5))
+    u, v = _s(z0, z2, z4), _s(z1, z3, z5)
+    s1, s2 = _add(_s(u, _xi(v), dim=-5), _s(v, u, dim=-5)).unbind(-5)
+    tmp, p = MK._fq2_mul(torch.cat([u, s1], -4), torch.cat([v, s2], -4)).split(3, -4)
+    t0, t2, t4 = _sub(_sub(p, tmp), _xi(tmp)).unbind(-4)
+    t1, t3, t5 = _add(tmp, tmp).unbind(-4)
+    tm, tp = _s(t0, t4, t2), _s(t1, _xi(t5), t3)
+    x = torch.cat([_sub(tm, _s(z0, z3, z4)), _add(tp, _s(z1, z2, z5))], -4)
+    nz0, nz3, nz4, nz1, nz2, nz5 = _add(_add(x, x), torch.cat([tm, tp], -4)).unbind(-4)
+    return _s(_s(nz0, nz4, nz3), _s(nz2, nz1, nz5), dim=-5)
+
+
+def _dbl_step(r):
+    """Miller doubling step (pairing_jax._doubling_step, mod.rs:754-776) on a
+    stacked G2 triple [..., 3, 2, 16, B] -> (new r, (ell_0, ell_vw, ell_vv))."""
+    x, y, z = r.unbind(-4)
+    yz = _add(y, z)
+    xy, b, c, j, yz2 = MK._fq2_mul(_s(x, y, z, x, yz), _s(y, y, z, x, yz)).unbind(-4)
+    c2, bc = _add(_s(c, b), _s(c, c)).unbind(-4)
+    d = _add(c2, c)
+    e = MK._fq2_mul(_s(_const(C.B2[0], d[..., 0, :, :]),
+                       _const(C.B2[1], d[..., 0, :, :]), dim=-3), d)
+    f = _add(_add(e, e), e)
+    bf, bmf = _add(b, f), _sub(b, f)
+    i, h = _sub(_s(e, yz2), _s(b, bc)).unbind(-4)
+    two_inv = _const(pow(2, C.Q - 2, C.Q), xy)
+    a_, g = L.mont_mul(_s(xy, bf), _s(two_inv, two_inv), _F).unbind(-4)
+    nx, g2, e2, nz = MK._fq2_mul(_s(a_, g, e, b), _s(bmf, g, e, h)).unbind(-4)
+    t = _s(e2, j)
+    e3, j3 = _add(_add(t, t), t).unbind(-4)
+    ny = _sub(g2, e3)
+    return _s(nx, ny, nz), _s(_xi(i), _neg(h), j3)
+
+
+def _add_step(r, base):
+    """Mixed addition step (pairing_jax._addition_step, mod.rs:731-752)
+    against an affine base [..., 2, 2, 16, B]."""
+    x, y, z = r.unbind(-4)
+    bx, by = base.unbind(-4)
+    d, e = _sub(_s(x, y), MK._fq2_mul(_s(z, z), _s(bx, by))).unbind(-4)
+    f, g = MK._fq2_mul(_s(d, e), _s(d, e)).unbind(-4)
+    h, i, zg = MK._fq2_mul(_s(d, x, z), _s(f, f, g)).unbind(-4)
+    j = _sub(_add(zg, h), _add(i, i))
+    nx, eij, hy, nz, ebx, dby = MK._fq2_mul(_s(d, e, h, z, e, d),
+                                            _s(j, _sub(i, j), y, h, bx, by)).unbind(-4)
+    return _s(nx, _sub(eij, hy), nz), _s(_xi(_sub(ebx, dby)), d, _neg(e))
+
+
+def _fold(f, c, px, py):
+    """f * line, with ell_vv*px and ell_vw*py folded in (pallas_fused
+    fq12_fold_line): c = (ell_0, ell_vw, ell_vv)."""
+    ell_0, ell_vw, ell_vv = c.unbind(-4)
+    x2, x4 = L.mont_mul(_s(ell_vv, ell_vw), _s(px, py, dim=-3).unsqueeze(-3),
+                        _F).unbind(-4)
+    return _mul_by_024(f, ell_0, x2, x4)
+
+
+def _fq12_one(like):
+    one = _const(1, like)
+    zero = torch.zeros_like(one)
+    return torch.stack([one] + [zero] * 11).view(2, 3, 2, N, like.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of the kernels (packed tensors in and out)
+# ---------------------------------------------------------------------------
+
+def fq_pow_plain(a, e: int):
+    counts.plain_calls["fq_pow"] += 1
+    res = a
+    for bit in _msb_bits(e).ravel():
+        res = L.mont_sqr(res, _F)
+        if bit:
+            res = L.mont_mul(res, a, _F)
+    return res
+
+
+def miller_precompute_plain(q, p, kinds):
+    counts.plain_calls["miller_precompute"] += 1
+    batch = p.shape[-1]
+    qx, qy = q.view(2, 2, N, batch).unbind(0)
+    px, py = p.unbind(0)
+    qy_neg = _neg(qy)
+    f = _fq12_one(px)
+    r = _s(qx, qy, f[0, 0])                     # z = (1, 0)
+    for kind in np.asarray(kinds).ravel():
+        if kind == 0:
+            f = _sqr12(f)
+            r, c = _dbl_step(r)
+        else:
+            r, c = _add_step(r, _s(qx, qy if kind == 1 else qy_neg))
+        f = _fold(f, c, px, py)
+    return f.reshape(12, N, batch), r.reshape(6, N, batch)
+
+
+def g2_add_step_plain(r, base):
+    counts.plain_calls["g2_add_step"] += 1
+    batch = r.shape[-1]
+    nr, c = _add_step(r.view(3, 2, N, batch), base.view(2, 2, N, batch))
+    return nr.reshape(6, N, batch), c.reshape(6, N, batch)
+
+
+def fq12_fold_line_plain(f, c, px, py):
+    counts.plain_calls["fq12_fold_line"] += 1
+    batch = f.shape[-1]
+    out = _fold(f.view(2, 3, 2, N, batch), c.view(3, 2, N, batch), px, py)
+    return out.reshape(12, N, batch)
+
+
+def fq12_mul_plain(a, b):
+    counts.plain_calls["fq12_mul"] += 1
+    batch = a.shape[-1]
+    return _mul12(a.view(2, 3, 2, N, batch), b.view(2, 3, 2, N, batch)).reshape(12, N, batch)
+
+
+def fq12_cyc_sqr_plain(a):
+    counts.plain_calls["fq12_cyc_sqr"] += 1
+    batch = a.shape[-1]
+    return _cyc_sqr(a.view(2, 3, 2, N, batch)).reshape(12, N, batch)
+
+
+def fq12_cyc_pow_plain(a, digits):
+    counts.plain_calls["fq12_cyc_pow"] += 1
+    batch = a.shape[-1]
+    a6 = a.view(2, 3, 2, N, batch)
+    aconj = _conj12(a6)
+    res = a6
+    for d in np.asarray(digits).ravel():
+        res = _cyc_sqr(res)
+        if d == 1:
+            res = _mul12(res, a6)
+        elif d == 2:
+            res = _mul12(res, aconj)
+    return res.reshape(12, N, batch)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def fq_pow(a, e: int):
+    """a^e for a static exponent e >= 1, one whole-ladder kernel: MSB-first,
+    leading bit dropped, a multiply only on set bits.  a: [16, B] Fq.
+    Kernel: csrc/fused.cu k_fq_pow, replacing pallas_fused.py
+    _pow_call_impl("fq_pow")."""
+    assert e >= 1
+    bits = _msb_bits(e)
+    if len(bits) == 0:
+        return a
+    if not on_cuda(a):
+        return fq_pow_plain(a, e)
+    batch = a.shape[-1]
+    check("fq_pow", batch, a.device, (a, ()))
+    out = torch.empty_like(a)
+    launch("fq_pow", batch, _digits_on(bits, a.device).data_ptr(), len(bits),
+           a.data_ptr(), out.data_ptr())
+    return out
+
+
+def miller_precompute(q, p, kinds):
+    """The scheduled Miller steps in one kernel: kind 0 squares f and takes a
+    G2 doubling step, kind 1/2 a mixed addition with +Q/-Q; each step then
+    folds its line (scaled by px, py) into f.
+
+    q: affine G2 [4, 16, B]; p: affine G1 [2, 16, B]; kinds: [n, 1] int32.
+    Returns (f [12, 16, B], r [6, 16, B]).  Kernel: csrc/fused.cu
+    k_miller_precompute, replacing pallas_fused.py:_miller_call_impl."""
+    if not on_cuda(p):
+        return miller_precompute_plain(q, p, kinds)
+    batch = p.shape[-1]
+    check("miller_precompute", batch, p.device, (q, (4,)), (p, (2,)))
+    f = torch.empty((12, N, batch), dtype=torch.int32, device=p.device)
+    r = torch.empty((6, N, batch), dtype=torch.int32, device=p.device)
+    launch("miller_precompute", batch, _digits_on(kinds, p.device).data_ptr(),
+           len(kinds), p.data_ptr(), q.data_ptr(), f.data_ptr(), r.data_ptr())
+    return f, r
+
+
+def g2_add_step(r, base):
+    """G2 mixed addition step and its line: r [6, 16, B] Jacobian, base
+    [4, 16, B] affine -> (r' [6, 16, B], (ell_0, ell_vw, ell_vv) [6, 16, B]).
+    Kernel: csrc/fused.cu k_g2_add_step, replacing pallas_fused.py
+    _call_impl("g2_add_step")."""
+    if not on_cuda(r):
+        return g2_add_step_plain(r, base)
+    batch = r.shape[-1]
+    check("g2_add_step", batch, r.device, (r, (6,)), (base, (4,)))
+    nr, c = torch.empty_like(r), torch.empty_like(r)
+    launch("g2_add_step", batch, r.data_ptr(), base.data_ptr(), nr.data_ptr(),
+           c.data_ptr())
+    return nr, c
+
+
+def fq12_fold_line(f, c, px, py):
+    """f * line with ell_vv*px and ell_vw*py fused in: f [12, 16, B], c
+    (ell_0, ell_vw, ell_vv) [6, 16, B], px, py [16, B] -> [12, 16, B].
+    Kernel: csrc/fused.cu k_fq12_fold_line, replacing pallas_fused.py
+    _call_impl("fq12_fold_line")."""
+    if not on_cuda(f):
+        return fq12_fold_line_plain(f, c, px, py)
+    batch = f.shape[-1]
+    check("fq12_fold_line", batch, f.device, (f, (12,)), (c, (6,)), (px, ()), (py, ()))
+    out = torch.empty_like(f)
+    launch("fq12_fold_line", batch, f.data_ptr(), c.data_ptr(), px.data_ptr(),
+           py.data_ptr(), out.data_ptr())
+    return out
+
+
+def fq12_mul(a, b):
+    """Fq12 product [12, 16, B] x [12, 16, B]. Kernel: csrc/fused.cu
+    k_fq12_mul, replacing pallas_fused.py _call_impl("fq12_mul")."""
+    if not on_cuda(a):
+        return fq12_mul_plain(a, b)
+    batch = a.shape[-1]
+    check("fq12_mul", batch, a.device, (a, (12,)), (b, (12,)))
+    out = torch.empty_like(a)
+    launch("fq12_mul", batch, a.data_ptr(), b.data_ptr(), out.data_ptr())
+    return out
+
+
+def fq12_cyc_sqr(a):
+    """Granger-Scott cyclotomic square [12, 16, B]. Kernel: csrc/fused.cu
+    k_fq12_cyc_sqr, replacing pallas_fused.py _call_impl("fq12_cyc_sqr")."""
+    if not on_cuda(a):
+        return fq12_cyc_sqr_plain(a)
+    batch = a.shape[-1]
+    check("fq12_cyc_sqr", batch, a.device, (a, (12,)))
+    out = torch.empty_like(a)
+    launch("fq12_cyc_sqr", batch, a.data_ptr(), out.data_ptr())
+    return out
+
+
+def fq12_cyc_pow(a, digits):
+    """Cyclotomic-square ladder a^e over MSB-first digits (leading digit
+    dropped): digit 1 multiplies by a, digit 2 by its conjugate.  With NAF
+    digits the result is a^e only in the cyclotomic subgroup; with binary
+    digits it is the formula-pinned ladder for any Fq12.  a: [12, 16, B].
+    Kernel: csrc/fused.cu k_fq12_cyc_pow, replacing pallas_fused.py
+    _pow_call_impl("fq12_cyc_pow")."""
+    if not on_cuda(a):
+        return fq12_cyc_pow_plain(a, digits)
+    batch = a.shape[-1]
+    check("fq12_cyc_pow", batch, a.device, (a, (12,)))
+    out = torch.empty_like(a)
+    launch("fq12_cyc_pow", batch, _digits_on(digits, a.device).data_ptr(),
+           len(digits), a.data_ptr(), out.data_ptr())
+    return out

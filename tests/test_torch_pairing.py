@@ -1,0 +1,235 @@
+"""The port's G1/G2 codecs, Miller loop and reduced pairing (bn254_tpu_torch
+on the CPU, plain versions of every kernel) against the JAX package's
+pairing, the spec oracle and the reference's golden vectors, on the same
+inputs.  Comparisons are exact."""
+
+import os
+import random
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import torch
+
+from bn254_tpu import groups as JG
+from bn254_tpu import pairing_jax as JP
+from bn254_tpu import tape
+from bn254_tpu import tower as JT
+from bn254_tpu.spec import field as SF
+from bn254_tpu.spec import group as SG
+from bn254_tpu.spec.constants import Q, R
+from bn254_tpu_torch import convert, counts
+from bn254_tpu_torch import fused as FU
+from bn254_tpu_torch import groups as G
+from bn254_tpu_torch import mont_kernels as MK
+from bn254_tpu_torch import pairing as P
+from bn254_tpu_torch import tower as T
+from test_torch_tower import assert_same, on_tape
+import golden
+
+# The plain versions run many small tensor ops: intra-op threads only add
+# overhead at these batch sizes, and the test workers already run in parallel.
+torch.set_num_threads(1)
+
+SEED = 0xB17E
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OPS1, OPS2 = SG.G1_PARAMS[0], SG.G2_PARAMS[0]
+
+
+def _g1(k):
+    return SG.scalar_mul((SG.G1_PARAMS[1][0], SG.G1_PARAMS[1][1], OPS1.one), k, OPS1)
+
+
+def _g2(k):
+    return SG.scalar_mul((SG.G2_PARAMS[1][0], SG.G2_PARAMS[1][1], OPS2.one), k, OPS2)
+
+
+def assert_packed(packed, jax_tree):
+    """A packed [c, 16, B] port tensor holds the JAX tree's leaves in order."""
+    want = np.stack([np.asarray(x) for x in jax.tree.leaves(jax_tree)])
+    assert np.array_equal(packed.numpy().astype(np.uint32), want)
+
+
+def _rand_fq2_np(rng, n):
+    return JT.fq2_encode([(rng.randrange(Q), rng.randrange(Q)) for _ in range(n)])
+
+
+def _affine_pairs(scalars):
+    """Affine (G1, G2) batches of k*G for (a, b) in scalars, JAX format."""
+    ps = [SG.to_affine(_g1(a), OPS1) for a, _ in scalars]
+    qs = [SG.to_affine(_g2(b), OPS2) for _, b in scalars]
+    pa = tuple(JG.G1.encode([p[k] for p in ps]) for k in range(2))
+    qa = tuple(JT.fq2_encode([q[k] for q in qs]) for k in range(2))
+    return pa, qa
+
+
+def test_schedules_match_jax():
+    assert np.array_equal(P._PRE_KINDS, JP._PRE_KINDS)
+    assert np.array_equal(P._SQR_FLAGS, JP._SQR_FLAGS)
+
+
+def test_to_affine_vs_jax():
+    """G1 and G2 to_affine (rows 1-5 on the CPU) on Jacobian points with
+    z != 1 and an infinity lane."""
+    rng = random.Random(SEED)
+    ps = [_g1(rng.randrange(1, R)) for _ in range(3)] + [SG.zero(OPS1)]
+    qs = [SG.zero(OPS2)] + [_g2(rng.randrange(1, R)) for _ in range(3)]
+    for jk, pk, ops, pts, zero in ((JG.G1, G.G1, OPS1, ps, 0),
+                                   (JG.G2, G.G2, OPS2, qs, (0, 0))):
+        j_np = jax.tree.map(np.asarray, JG.encode_points(jk, pts))
+        port = G.encode_points(pk, pts, "cpu")
+        assert_same(port, j_np)
+        assert G.decode_points(pk, port) == pts
+        (x, y), inf = G.to_affine(pk, port)
+        (jx, jy), jinf = jax.jit(lambda p, jk=jk: JG.to_affine(jk, p))(j_np)
+        assert_same((x, y), (jx, jy))
+        assert inf.tolist() == np.asarray(jinf).tolist() == [SG.is_zero(p, ops) for p in pts]
+        for xv, yv, p in zip(pk.decode(x), pk.decode(y), pts):
+            assert (xv, yv) == (SG.to_affine(p, ops) or (zero, zero))   # inv(0) = 0
+
+
+def test_precompute_all_87_coefficients():
+    """Every one of the 87 line-coefficient triples of the plain precompute
+    against the spec's and the JAX package's (whose tests check the count,
+    the first and the last)."""
+    qa_spec = [golden.PREPARED_G2_Q, SG.to_affine(_g2(0x5EED), OPS2)]
+    qa_np = tuple(JT.fq2_encode([q[k] for q in qa_spec]) for k in range(2))
+    coeffs = P.precompute(convert.from_numpy(qa_np, "cpu"))
+    assert_same(coeffs, jax.jit(JP.precompute)(qa_np))
+    for lane, q in enumerate(qa_spec):
+        got = [tuple(T.fq2_decode(tuple(c[i] for c in ell))[lane] for ell in coeffs)
+               for i in range(87)]
+        assert got == SG.precompute(q)
+    first = tuple(T.fq2_decode(tuple(c[0] for c in ell))[0] for ell in coeffs)
+    assert first == golden.PREPARED_G2_COEFF_FIRST
+
+
+def test_doubling_and_addition_steps_vs_jax():
+    """The stacked G2 line steps inside the plain Miller (row 6) and the
+    g2_add_step plain version (row 7) against pairing_jax's steps."""
+    rng = random.Random(SEED + 1)
+    r_np = tuple(_rand_fq2_np(rng, 4) for _ in range(3))
+    base_np = tuple(_rand_fq2_np(rng, 4) for _ in range(2))
+    r, base = (convert.pack(t) for t in convert.from_numpy((r_np, base_np), "cpu"))
+    two_inv = JG.G1.encode([pow(2, Q - 2, Q)] * 4)
+    nr, c = FU._dbl_step(r.view(3, 2, 16, 4))
+    assert_packed(torch.cat([nr.reshape(6, 16, 4), c.reshape(6, 16, 4)]),
+                  on_tape(JP._doubling_step, r_np, two_inv))
+    assert_packed(torch.cat(FU.g2_add_step(r, base)), on_tape(JP._addition_step, r_np, base_np))
+
+
+def test_fold_line_vs_jax():
+    """Row 8's plain version: f * line with ell_vv*px and ell_vw*py."""
+    rng = random.Random(SEED + 2)
+    f_np = JT.fq12_encode([tuple(tuple((rng.randrange(Q), rng.randrange(Q))
+                                       for _ in range(3)) for _ in range(2))
+                           for _ in range(4)])
+    c_np = tuple(_rand_fq2_np(rng, 4) for _ in range(3))
+    px_np, py_np = (JG.G1.encode([rng.randrange(Q) for _ in range(4)]) for _ in range(2))
+    want = on_tape(lambda f, c, px, py: JT.fq12_mul_by_024(
+        f, c[0], JT.fq2_scale(c[2], px), JT.fq2_scale(c[1], py)), f_np, c_np, px_np, py_np)
+    f, c, px, py = convert.from_numpy((f_np, c_np, px_np, py_np), "cpu")
+    assert_packed(FU.fq12_fold_line(convert.pack(f), convert.pack(c), px, py), want)
+
+
+def test_miller_f_fused_vs_jax_miller_loop():
+    """The plain Miller kernel + 2 Frobenius steps and folds (rows 6-8)
+    against the JAX package's CPU Miller loop (precompute interleaved with
+    the fold, tape.py) and the port's own unfused precompute + miller_loop."""
+    rng = random.Random(SEED + 3)
+    pa_np, qa_np = _affine_pairs([(rng.randrange(1, R), rng.randrange(1, R))
+                                  for _ in range(2)])
+    pa, qa = convert.from_numpy((pa_np, qa_np), "cpu")
+    got = P._miller_f_fused(qa, pa)
+    assert_same(got, on_tape(lambda q, p: tape._tape_miller_fused(p, q), qa_np, pa_np))
+    assert_same(got, convert.to_numpy(P.miller_loop(P.precompute(qa), pa)))
+
+
+def test_miller_loop_batch_golden():
+    """Un-exponentiated Miller value (mod.rs:642-691)."""
+    pd = G.encode_points(G.G1, [_g1(golden.MILLER_G1_SCALAR)], "cpu")
+    qd = G.encode_points(G.G2, [_g2(golden.MILLER_G2_SCALAR)], "cpu")
+    assert T.fq12_decode(P.miller_loop_batch(qd, pd))[0] == golden.MILLER_EXPECTED
+
+
+def test_pairing_vs_jax_and_golden():
+    """Per-lane reduced pairing: the golden pair, a random pair, and
+    infinity in either slot (the GT identity)."""
+    rng = random.Random(SEED + 4)
+    ps = [_g1(golden.MILLER_G1_SCALAR), _g1(rng.randrange(1, R)), SG.zero(OPS1),
+          _g1(rng.randrange(1, R))]
+    qs = [_g2(golden.MILLER_G2_SCALAR), _g2(rng.randrange(1, R)), _g2(rng.randrange(1, R)),
+          SG.zero(OPS2)]
+    pd_np, qd_np = JG.encode_points(JG.G1, ps), JG.encode_points(JG.G2, qs)
+    got = P.pairing(*convert.from_numpy((pd_np, qd_np), "cpu"))
+    assert_same(got, jax.jit(JP.pairing)(pd_np, qd_np))
+    out = T.fq12_decode(got)
+    assert out[0] == golden.REDUCED_PAIRING_EXPECTED
+    assert out[1] == SG.pairing(ps[1], qs[1])
+    assert out[2] == out[3] == SF.FQ12_ONE
+
+
+def test_pairing_batch_with_infinity_vs_jax_and_spec():
+    """Product of 5 pairings with two infinity pairs skipped, one shared
+    final exponentiation (mod.rs:904-926); odd batch exercises the
+    halving product's carried tail."""
+    rng = random.Random(SEED + 5)
+    ps = [_g1(rng.randrange(1, R)) for _ in range(5)]
+    qs = [_g2(rng.randrange(1, R)) for _ in range(5)]
+    ps[1] = SG.zero(OPS1)
+    qs[3] = SG.zero(OPS2)
+    pd_np, qd_np = JG.encode_points(JG.G1, ps), JG.encode_points(JG.G2, qs)
+    got = P.pairing_batch(*convert.from_numpy((pd_np, qd_np), "cpu"))
+    assert_same(got, jax.jit(JP.pairing_batch)(pd_np, qd_np))
+    assert T.fq12_decode(got)[0] == SG.pairing_batch(ps, qs)
+
+
+def test_all_infinity_batch_is_identity():
+    ps = [SG.zero(OPS1), SG.zero(OPS1)]
+    qs = [_g2(5), SG.zero(OPS2)]
+    out = P.pairing_batch(G.encode_points(G.G1, ps, "cpu"), G.encode_points(G.G2, qs, "cpu"))
+    assert T.fq12_decode(out)[0] == SF.FQ12_ONE
+
+
+def test_main_path_reaches_every_kernel_with_valid_arguments(monkeypatch):
+    """The main path with the wrappers taking their kernel branch on CPU
+    tensors and the launch stubbed out: every wrapper's device, dtype,
+    shape and contiguity check passes, each of the eleven kernels is
+    reached, and no plain version runs (what chip_smoke.py asserts on the
+    card).  Batches 1 to 5 cover the product reduction's odd tails."""
+    def launch(name, batch, *args):
+        counts.launches[name] += 1
+
+    for mod in (MK, FU):
+        monkeypatch.setattr(mod, "on_cuda", lambda t: True)
+        monkeypatch.setattr(mod, "launch", launch)
+    rng = random.Random(SEED + 6)
+    ps = [_g1(rng.randrange(1, R)) for _ in range(5)]
+    qs = [_g2(rng.randrange(1, R)) for _ in range(5)]
+    ps[1] = SG.zero(OPS1)
+    counts.reset()
+    P.pairing(G.encode_points(G.G1, ps, "cpu"), G.encode_points(G.G2, qs, "cpu"))
+    for n in range(1, 6):
+        P.pairing_batch(G.encode_points(G.G1, ps[:n], "cpu"),
+                        G.encode_points(G.G2, qs[:n], "cpu"))
+    assert sorted(k for k, v in counts.launches.items() if v) == sorted(counts.KERNELS)
+    assert not any(counts.plain_calls.values())
+    assert counts.launches["miller_precompute"] == 6
+    assert counts.launches["fq12_cyc_pow"] == 3 * 6
+
+
+def test_import_leaves_jax_unloaded():
+    """The port and everything it imports run without jax (the card's
+    machine has none)."""
+    code = ("import sys, pkgutil, importlib, bn254_tpu_torch as m\n"
+            "for i in pkgutil.iter_modules(m.__path__):\n"
+            "    importlib.import_module('bn254_tpu_torch.' + i.name)\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib')))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd="/", env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
