@@ -7,10 +7,11 @@ build happens at first use, into ``bn254_tpu_torch/_build/`` (listed in
 header or the flags change (the library's file name carries their hash).
 
 Field constants reach the kernels through ``_build/bn254_consts.h``,
-generated here from ``bn254_tpu.spec.constants`` through the port's
-``Mod``: the Fq modulus and -q^-1 mod 2^32, and the Montgomery forms of 1,
-1/2 and the twist coefficient b2.  (The Montgomery kernels take their
-modulus as an argument instead, so they serve Fr as well.)
+generated here from ``bn254_tpu_torch.spec.constants`` (the port's copy of
+the oracle) through the port's ``Mod``: the Fq modulus and -q^-1 mod 2^32,
+and the Montgomery forms of 1, 1/2 and the twist coefficient b2.  (The
+Montgomery kernels take their modulus as an argument instead, so they
+serve Fr as well.)
 
 Every C entry returns ``cudaGetLastError()`` right after its launch;
 ``launch`` raises if it is not 0 and otherwise adds one to the kernel's
@@ -29,12 +30,12 @@ import torch
 
 from . import counts
 from .limbs import Mod
-from bn254_tpu.spec import constants as C
+from .spec import constants as C
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("mont_kernels.cu", "fused.cu")
+SOURCES = ("mont_kernels.cu", "fused.cu", "groups.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
@@ -52,6 +53,9 @@ _SIGS = {
     "fq12_mul": "ppp",           # a, b, out
     "fq12_cyc_sqr": "pp",        # a, out
     "fq12_cyc_pow": "pipp",      # digits, n, a, out
+    "point_add": "ippp",         # ncoords, p, q, out
+    "point_double": "ipp",       # ncoords, p, out
+    "msm_accumulate": "ippppiiii",  # ncoords, points, digits, buckets, out, n, W, nb, signed
 }
 assert tuple(_SIGS) == counts.KERNELS
 
@@ -67,7 +71,7 @@ def consts_header() -> str:
     fq = Mod(C.Q)
     mont = lambda v: (v % C.Q) * fq.r % C.Q
     return "\n".join([
-        "// Generated by bn254_tpu_torch/_build.py from bn254_tpu.spec.constants.",
+        "// Generated by bn254_tpu_torch/_build.py from bn254_tpu_torch.spec.constants.",
         "#pragma once",
         f"#define BN254_FQ_Q {_words(C.Q)}",
         f"#define BN254_FQ_QINV 0x{fq.qinv32:08x}u",

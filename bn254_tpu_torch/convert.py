@@ -57,3 +57,10 @@ def unpack_fq12(arr):
     return (((arr[0], arr[1]), (arr[2], arr[3]), (arr[4], arr[5])),
             ((arr[6], arr[7]), (arr[8], arr[9]), (arr[10], arr[11])))
 
+
+def unpack_point(ncoords: int, arr):
+    """Packed [3c, 16, B] -> Jacobian triple: Fq leaves for G1 (c = 1),
+    Fq2 pairs for G2 (c = 2)."""
+    if ncoords == 1:
+        return (arr[0], arr[1], arr[2])
+    return ((arr[0], arr[1]), (arr[2], arr[3]), (arr[4], arr[5]))

@@ -29,7 +29,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "bn254_consts.h"  // generated at build time from bn254_tpu.spec
+#include "bn254_consts.h"  // generated at build time from bn254_tpu_torch.spec
 
 namespace bn254 {
 

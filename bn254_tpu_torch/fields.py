@@ -17,7 +17,7 @@ import torch
 from . import fused as FU
 from . import limbs as L
 from . import mont_kernels as MK
-from bn254_tpu.spec import constants as C
+from .spec import constants as C
 
 __all__ = ["FieldCtx", "FQ", "FR"]
 

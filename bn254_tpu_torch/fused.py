@@ -1,10 +1,11 @@
-"""Fused tower-op kernel wrappers — counterpart of
-bn254_tpu/pallas_fused.py (queue rows 5-11).
+"""Fused tower-op and group-law kernel wrappers — counterpart of
+bn254_tpu/pallas_fused.py (queue rows 5-11 and 17-19).
 
 Every wrapper takes packed contiguous ``[c, 16, B]`` int32 tensors (the
 ``pallas_fused.pack`` layout: the tower pytree's Fq leaves stacked in
-order).  For a CUDA tensor it launches its kernel from csrc/fused.cu; for
-a CPU tensor it runs its plain version below; any other device raises.
+order).  For a CUDA tensor it launches its kernel from csrc/fused.cu (rows
+5-11) or csrc/groups.cu (rows 17-19); for a CPU tensor it runs its plain
+version below; any other device raises.
 
 The plain versions are the same formulas as bn254_tpu.tower and
 pallas_fused's in-kernel helpers (kfq*, kg2_*), written over stacked
@@ -26,7 +27,7 @@ from . import counts
 from . import limbs as L
 from . import mont_kernels as MK
 from ._build import check, launch, on_cuda
-from bn254_tpu.spec import constants as C
+from .spec import constants as C
 
 _F = MK.FQ_MOD
 N = L.N_LIMBS
@@ -317,6 +318,209 @@ def fq12_cyc_pow_plain(a, digits):
 
 
 # ---------------------------------------------------------------------------
+# Plain group law (pallas_fused k_point_double / k_point_add /
+# k_point_madd_generic / k_affine_double) over stacked coordinates
+# ---------------------------------------------------------------------------
+
+class _Coord:
+    """A point coordinate's field for the plain point formulas: Fq
+    elements are [..., 16, B] (ncoords 1), Fq2 elements [..., 2, 16, B]
+    (ncoords 2).  Values stay exact residues, so products may be stacked
+    and squares taken as products without changing a bit."""
+
+    def __init__(self, ncoords: int):
+        self.ncoords = ncoords
+        self.elem = -3 if ncoords == 1 else -4       # stacking axis
+        self._mul = ((lambda a, b: L.mont_mul(a, b, _F)) if ncoords == 1
+                     else MK._fq2_mul)
+        self._sqr = ((lambda a: L.mont_sqr(a, _F)) if ncoords == 1 else MK._fq2_sqr)
+
+    def mul(self, *pairs):
+        """Products of (a, b) pairs, all in one call."""
+        if len(pairs) == 1:
+            return self._mul(*pairs[0])
+        out = self._mul(torch.stack([a for a, _ in pairs], self.elem),
+                        torch.stack([b for _, b in pairs], self.elem))
+        return out.unbind(self.elem)
+
+    def sqr(self, *xs):
+        """Squares, all in one call (2 products per Fq2 square, not 3)."""
+        if len(xs) == 1:
+            return self._sqr(xs[0])
+        return self._sqr(torch.stack(xs, self.elem)).unbind(self.elem)
+
+    def mask(self, m):
+        """[..., B] lane mask -> broadcastable over [..., (2,) 16, B]."""
+        m = m.unsqueeze(-2)
+        return m if self.ncoords == 1 else m.unsqueeze(-2)
+
+    def is_zero(self, a):
+        z = (a == 0).all(-2)
+        return z if self.ncoords == 1 else z.all(-2)
+
+    def eq(self, a, b):
+        e = (a == b).all(-2)
+        return e if self.ncoords == 1 else e.all(-2)
+
+    def select(self, m, a, b):
+        return torch.where(self.mask(m), a, b)
+
+    def one(self, like):
+        one = _const(1, like if self.ncoords == 1 else like[..., 0, :, :])
+        if self.ncoords == 1:
+            return one
+        return torch.stack([one, torch.zeros_like(one)], -3)
+
+    def point(self, arr):
+        """Packed [3c, 16, B] -> stacked [3, (2,) 16, B]."""
+        return arr.view(3, *([2] if self.ncoords == 2 else []), N, arr.shape[-1])
+
+
+_COORD = {1: _Coord(1), 2: _Coord(2)}
+
+
+def _coord(ncoords: int) -> _Coord:
+    if ncoords not in _COORD:
+        raise ValueError(f"ncoords must be 1 (G1) or 2 (G2), got {ncoords}")
+    return _COORD[ncoords]
+
+
+def _point_double(A, x, y, z):
+    """dbl-2009-l (groups.double, k_point_double) -> (x3, y3, z3)."""
+    a, b = A.sqr(x, y)
+    c, xb2 = A.sqr(b, _add(x, b))
+    d = _sub(_sub(xb2, a), c)
+    d = _add(d, d)
+    e = _add(_add(a, a), a)
+    f = A.sqr(e)
+    x3 = _sub(f, _add(d, d))
+    ec = _add(c, c)
+    ec = _add(ec, ec)
+    ec = _add(ec, ec)
+    t, yz = A.mul((e, _sub(d, x3)), (y, z))
+    return x3, _sub(t, ec), _add(yz, yz)
+
+
+def _point_add(A, p, q):
+    """Unified Jacobian add with the 3-way select (groups.add,
+    k_point_add): coincide -> double(p), q at infinity -> p, p at
+    infinity -> q.  p, q: (x, y, z).  Like the kernel, it doubles only
+    when some lane coincides."""
+    (x1, y1, z1), (x2, y2, z2) = p, q
+    p_inf, q_inf = A.is_zero(z1), A.is_zero(z2)
+    z1s, z2s, z12s = A.sqr(z1, z2, _add(z1, z2))
+    u1, u2, z1c, z2c = A.mul((x1, z2s), (x2, z1s), (z1, z1s), (z2, z2s))
+    s1, s2 = A.mul((y1, z2c), (y2, z1c))
+    coincide = A.eq(u1, u2) & A.eq(s1, s2) & ~p_inf & ~q_inf
+    h = _sub(u2, u1)
+    d = _sub(s2, s1)
+    rr = _add(d, d)
+    i, rr2 = A.sqr(_add(h, h), rr)
+    zz = _sub(_sub(z12s, z1s), z2s)
+    j, v, z3 = A.mul((h, i), (u1, i), (zz, h))
+    x3 = _sub(_sub(rr2, j), _add(v, v))
+    t, s1j = A.mul((rr, _sub(v, x3)), (s1, j))
+    out = (x3, _sub(t, _add(s1j, s1j)), z3)
+    if bool(coincide.any()):        # the select takes the double nowhere else
+        dbl = _point_double(A, x1, y1, z1)
+        out = tuple(A.select(coincide, a, b) for a, b in zip(dbl, out))
+    out = tuple(A.select(q_inf, a, b) for a, b in zip(p, out))
+    return tuple(A.select(p_inf, a, b) for a, b in zip(q, out))
+
+
+def _point_madd_generic(A, p, qx, qy):
+    """Mixed add of an affine q without the doubling branch
+    (k_point_madd_generic) -> (out, coincide): lanes with coincide hold a
+    wrong value (z3 = 0) that the caller patches with the affine double."""
+    x1, y1, z1 = p
+    p_inf = A.is_zero(z1)
+    z1s = A.sqr(z1)
+    u2, z1c = A.mul((qx, z1s), (z1, z1s))
+    s2 = A.mul((qy, z1c))
+    coincide = A.eq(x1, u2) & A.eq(y1, s2) & ~p_inf
+    h = _sub(u2, x1)
+    d = _sub(s2, y1)
+    rr = _add(d, d)
+    i, rr2 = A.sqr(_add(h, h), rr)
+    j, v, zh = A.mul((h, i), (x1, i), (z1, h))
+    x3 = _sub(_sub(rr2, j), _add(v, v))
+    t, s1j = A.mul((rr, _sub(v, x3)), (y1, j))
+    y3 = _sub(t, _add(s1j, s1j))
+    q_jac = (qx, qy, A.one(qx))
+    out = tuple(A.select(p_inf, a, b) for a, b in zip(q_jac, (x3, y3, _add(zh, zh))))
+    return out, coincide
+
+
+def _affine_double(A, qx, qy):
+    """Jacobian double of an affine point (z = 1; k_affine_double)."""
+    a, b = A.sqr(qx, qy)
+    c, xb2 = A.sqr(b, _add(qx, b))
+    d2 = _sub(_sub(xb2, a), c)
+    d2 = _add(d2, d2)
+    e = _add(_add(a, a), a)
+    f = A.sqr(e)
+    xd = _sub(f, _add(d2, d2))
+    c8 = _add(c, c)
+    c8 = _add(c8, c8)
+    c8 = _add(c8, c8)
+    yd = _sub(A.mul((e, _sub(d2, xd))), c8)
+    return xd, yd, _add(qy, qy)
+
+
+def point_add_plain(ncoords: int, p, q):
+    counts.plain_calls["point_add"] += 1
+    A = _coord(ncoords)
+    out = _point_add(A, A.point(p).unbind(0), A.point(q).unbind(0))
+    return torch.stack(out).reshape(p.shape)
+
+
+def point_double_plain(ncoords: int, p):
+    counts.plain_calls["point_double"] += 1
+    A = _coord(ncoords)
+    return torch.stack(_point_double(A, *A.point(p).unbind(0))).reshape(p.shape)
+
+
+def msm_accumulate_plain(ncoords: int, points, digits, nb: int, signed: bool = True,
+                         lanes: int = 1024):
+    """All windows at once: the batch axis is (window, lane), window-major.
+    Tile i feeds point i*lanes + lane to lane `lane` of every window; the
+    bucket gather and scatter are indexing (bucket 0, the discard bucket,
+    is written and cleared again), then each lane reduces its own buckets
+    by the running sum."""
+    counts.plain_calls["msm_accumulate"] += 1
+    A = _coord(ncoords)
+    W, n = digits.shape
+    m, wl = n // lanes, W * lanes
+    pts = points.view(2, *([2] if ncoords == 2 else []), N, n)
+    buckets = torch.zeros((nb, 3) + tuple(pts.shape[1:-1]) + (wl,),
+                          dtype=torch.int32, device=points.device)
+    for i in range(m):
+        d = digits[:, i * lanes:(i + 1) * lanes].reshape(wl)
+        qx, qy = pts[..., i * lanes:(i + 1) * lanes].repeat(
+            (1,) * (pts.dim() - 1) + (W,)).unbind(0)
+        if signed:
+            neg = d < 0
+            qy = A.select(neg, _neg(qy), qy)
+            d = d.abs()
+        idx = d.view((1,) * (buckets.dim() - 1) + (wl,)).expand(
+            (1,) + tuple(buckets.shape[1:])).to(torch.int64)
+        cur = buckets.gather(0, idx)[0].unbind(0)
+        new, coincide = _point_madd_generic(A, cur, qx, qy)
+        if bool(coincide.any()):
+            dbl = _affine_double(A, qx, qy)
+            new = tuple(A.select(coincide, a, b) for a, b in zip(dbl, new))
+        buckets.scatter_(0, idx, torch.stack(new)[None])
+        buckets[0] = 0
+    zero = tuple(torch.zeros_like(buckets[0, 0]) for _ in range(3))
+    acc = tot = zero
+    for b in range(nb - 1, 0, -1):
+        acc = _point_add(A, acc, buckets[b].unbind(0))
+        tot = _point_add(A, tot, acc)
+    return (torch.stack(tot).reshape(3 * ncoords, N, W, lanes)
+            .permute(2, 0, 1, 3).contiguous())
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -426,4 +630,67 @@ def fq12_cyc_pow(a, digits):
     out = torch.empty_like(a)
     launch("fq12_cyc_pow", batch, _digits_on(digits, a.device).data_ptr(),
            len(digits), a.data_ptr(), out.data_ptr())
+    return out
+
+
+def point_add(ncoords: int, p, q):
+    """Unified Jacobian add of packed points [3c, 16, B] (c = ncoords: 1 for
+    G1 over Fq, 2 for G2 over Fq2).  Kernel: csrc/groups.cu k_point_add,
+    replacing pallas_fused.py _call_impl("g1_add"/"g2_add") (k_point_add)."""
+    if not on_cuda(p):
+        return point_add_plain(ncoords, p, q)
+    _coord(ncoords)
+    batch = p.shape[-1]
+    check("point_add", batch, p.device, (p, (3 * ncoords,)), (q, (3 * ncoords,)))
+    out = torch.empty_like(p)
+    launch("point_add", batch, ncoords, p.data_ptr(), q.data_ptr(), out.data_ptr())
+    return out
+
+
+def point_double(ncoords: int, p):
+    """dbl-2009-l doubling of packed points [3c, 16, B].  Kernel:
+    csrc/groups.cu k_point_double, replacing pallas_fused.py
+    _call_impl("g1_dbl"/"g2_dbl") (k_point_double)."""
+    if not on_cuda(p):
+        return point_double_plain(ncoords, p)
+    _coord(ncoords)
+    batch = p.shape[-1]
+    check("point_double", batch, p.device, (p, (3 * ncoords,)))
+    out = torch.empty_like(p)
+    launch("point_double", batch, ncoords, p.data_ptr(), out.data_ptr())
+    return out
+
+
+def msm_accumulate(ncoords: int, points, digits, nb: int, signed: bool = True,
+                   lanes: int = 1024):
+    """Bucket-accumulate and reduce every window of a Pippenger MSM.
+
+    points: affine [2c, 16, n] (infinity, padding and masked points must
+    carry digit 0); digits: int32 [W, n], in (-nb, nb) if signed (bucket
+    |d|, y negated for d < 0), else in [0, nb); bucket 0 discards.  Each
+    of the `lanes` lanes is an independent Pippenger sub-problem over the
+    points i with i % lanes == lane.  Returns the window totals
+    [W, 3c, 16, lanes].  Kernel: csrc/groups.cu k_msm_accumulate,
+    replacing pallas_fused.py _msm_acc_impl (msm_accumulate)."""
+    if not on_cuda(points):
+        return msm_accumulate_plain(ncoords, points, digits, nb, signed, lanes)
+    _coord(ncoords)
+    W, n = digits.shape
+    if lanes < 1 or n % lanes or nb < 2 or W * n >= 1 << 31:
+        raise ValueError(f"msm_accumulate: want lanes dividing n and nb >= 2, got "
+                         f"n={n}, lanes={lanes}, nb={nb}, W={W}")
+    check("msm_accumulate", n, points.device, (points, (2 * ncoords,)))
+    if (digits.dtype != torch.int32 or digits.device != points.device
+            or not digits.is_contiguous()):
+        raise ValueError("msm_accumulate: digits must be a contiguous int32 tensor "
+                         "on the points' device")
+    lo, hi = (int(v) for v in torch.aminmax(digits))
+    if lo < (-(nb - 1) if signed else 0) or hi > nb - 1:
+        raise ValueError(f"msm_accumulate: digits in [{lo}, {hi}] do not fit "
+                         f"{nb} {'signed' if signed else 'unsigned'} buckets")
+    buckets = torch.zeros((W, nb - 1, 3 * ncoords, N, lanes), dtype=torch.int32,
+                          device=points.device)
+    out = torch.empty((W, 3 * ncoords, N, lanes), dtype=torch.int32, device=points.device)
+    launch("msm_accumulate", lanes, ncoords, points.data_ptr(), digits.data_ptr(),
+           buckets.data_ptr(), out.data_ptr(), n, W, nb, int(signed))
     return out

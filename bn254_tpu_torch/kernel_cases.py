@@ -1,15 +1,25 @@
 """One case per kernel and variant (Fq or Fr modulus, NAF or binary
-digits): its wrapper, its plain version and inputs at the shapes the main
-path gives it — what ``chip_smoke.py`` compares bit for bit on the card.
+digits, G1 or G2): its wrapper, its plain version, inputs at the shapes the
+main path gives it and the work those inputs need — what ``chip_smoke.py``
+compares bit for bit on the card and holds against the card's bound.
 
-Inputs are drawn from a numpy seed as random Montgomery residues (limbs
-below q's top limb), with the first lanes of every coordinate set through
-``Mod.encode`` to 0, 1 and q - 1; lane 0 is all zeros, which is also what
-``to_affine`` hands the Miller kernels for a point at infinity.
+Field inputs are drawn from a numpy seed as random Montgomery residues
+(limbs below q's top limb), with the first lanes of every coordinate set
+through ``Mod.encode`` to 0, 1 and q - 1; lane 0 is all zeros, which is
+also what ``to_affine`` hands the Miller kernels for a point at infinity.
+Point inputs are real points (``point_batch``) with the group law's edge
+lanes; MSM inputs are distinct affine points with planted duplicates, so
+the coincide patch runs (``msm_args``).
+
+The bound (``bound_ms``) is the larger of two times: the Montgomery
+products the inputs need at ~350 integer instructions each (32-bit CIOS
+over 8 words) over the card's integer issue rate, and each input read
+once and each output written once over its memory rate.
 """
 
 from __future__ import annotations
 
+import random
 from dataclasses import dataclass
 from typing import Callable
 
@@ -17,13 +27,24 @@ import numpy as np
 import torch
 
 from . import fused as FU
+from . import groups as G
 from . import limbs as L
 from . import mont_kernels as MK
+from . import msm as M
+from .convert import pack
 from .fields import FR
 from .pairing import _PRE_KINDS
-from bn254_tpu.spec import constants as C
+from .spec import constants as C
+from .spec import group as SG
 
 FR_MOD = FR.mod
+
+# H100 SXM: 132 SMs x 64 INT32 lanes per clock (half the 128 FP32 lanes
+# behind the data sheet's 67 TFLOP/s) x 1.98 GHz; HBM3 at 3.35 TB/s.
+INT_OPS_PER_S = 132 * 64 * 1.98e9
+INSTR_PER_PRODUCT = 350
+HBM_BYTES_PER_S = 3.35e12
+FQ_BYTES = 16 * 4                   # one Fq value: 16 int32 limbs
 
 
 @dataclass(frozen=True)
@@ -35,6 +56,8 @@ class KernelCase:
     kernel: Callable
     plain: Callable
     make_args: Callable         # (rng, batch, device) -> args
+    work: Callable              # args -> (Montgomery products, bytes moved)
+    batches: tuple = (16384, 1000)   # the main batch, then a ragged one
 
 
 def residues(rng, coords: int, batch: int, device, mod: L.Mod = MK.FQ_MOD):
@@ -50,48 +73,213 @@ def _fq(c):
     return lambda rng, b, d: tuple(residues(rng, n, b, d) for n in c)
 
 
+# ---------------------------------------------------------------------------
+# Group-law and MSM inputs
+# ---------------------------------------------------------------------------
+
+_SPEC = {1: SG.G1_PARAMS, 2: SG.G2_PARAMS}
+_GROUP = {1: G.G1, 2: G.G2}
+
+
+def _spec_bases(ncoords: int, rnd: random.Random, count: int = 8):
+    ops, gen = _SPEC[ncoords][:2]
+    return ops, [SG.scalar_mul((gen[0], gen[1], ops.one), rnd.randrange(1, C.R), ops)
+                 for _ in range(count)]
+
+
+def _rescale(p, lam, ops):
+    """The same projective point with z scaled by lam: (x l^2, y l^3, z l)."""
+    l2 = ops.sqr(lam)
+    return (ops.mul(p[0], l2), ops.mul(p[1], ops.mul(l2, lam)), ops.mul(p[2], lam))
+
+
+def _affine(p, ops):
+    """The same point with z = 1."""
+    x, y = SG.to_affine(p, ops)
+    return (x, y, ops.one)
+
+
+def point_batch(rng, ncoords: int, batch: int):
+    """Spec Jacobian pairs (p, q) for the point kernels: random z on every
+    lane, and the edge lanes of the unified add first — p at infinity, q at
+    infinity, both, q = p (same coordinates), q = p with another z (the
+    coincide branch), q = -p, p with z = 1, q = -p with another z."""
+    rnd = random.Random(int(rng.integers(1 << 62)))
+    ops, bases = _spec_bases(ncoords, rnd)
+    lam = lambda: (rnd.randrange(1, C.Q) if ncoords == 1
+                   else (rnd.randrange(C.Q), rnd.randrange(1, C.Q)))
+    ps = [_rescale(bases[i % 8], lam(), ops) for i in range(batch)]
+    qs = [_rescale(bases[(3 * i + 1) % 8], lam(), ops) for i in range(batch)]
+    zero = SG.zero(ops)
+    edges = [(zero, qs[0]), (ps[1], zero), (zero, zero), (ps[3], ps[3]),
+             (ps[4], _rescale(ps[4], lam(), ops)), (ps[5], SG.neg(ps[5], ops)),
+             (_affine(ps[6], ops), qs[6]), (ps[7], _rescale(SG.neg(ps[7], ops), lam(), ops))]
+    for i, (p, q) in enumerate(edges[:batch]):
+        ps[i], qs[i] = p, q
+    return ps, qs
+
+
+def _points_args(ncoords: int, both: bool):
+    K = _GROUP[ncoords]
+
+    def make(rng, batch, device):
+        ps, qs = point_batch(rng, ncoords, batch)
+        p = pack(G.encode_points(K, ps, device))
+        return (ncoords, p, pack(G.encode_points(K, qs, device))) if both else (ncoords, p)
+    return make
+
+
+def msm_lanes(n: int) -> int:
+    """The kernel case's lane count: 1024 when it divides n, else n / 5."""
+    return 1024 if n % 1024 == 0 else n // 5
+
+
+def msm_args(rng, ncoords: int, n: int, device):
+    """(ncoords, affine points [2c, 16, n], signed digits [W, n], nb, True,
+    lanes) at the main path's window (c = MSM_FUSED_WINDOW).  The points
+    are distinct (chained spec additions); about a tenth of the digits are
+    0.  Lanes 0-7 of tile 1 repeat tile 0's points and digits, so each of
+    their buckets meets its own point (the coincide patch); lanes 8-15 of
+    tile 1 hold the negated points with the same digits (P + (-P))."""
+    rnd = random.Random(int(rng.integers(1 << 62)))
+    ops, bases = _spec_bases(ncoords, rnd)
+    c = M.MSM_FUSED_WINDOW[ncoords]
+    lanes, half = msm_lanes(n), 1 << (c - 1)
+    W = (254 + 1 + c - 1) // c
+    pts, p = [], bases[0]
+    for i in range(n):
+        p = SG.add(p, bases[i % 8], ops)
+        pts.append(SG.to_affine(p, ops))
+    digits = rng.integers(-(half - 1), half + 1, size=(W, n)).astype(np.int32)
+    digits[rng.random((W, n)) < 0.1] = 0
+    for j in range(16):
+        x, y = pts[j]
+        pts[lanes + j] = (x, y) if j < 8 else (x, ops.neg(y))
+        digits[:, lanes + j] = digits[:, j]
+    K = _GROUP[ncoords]
+    packed = pack((K.encode([x for x, _ in pts], device), K.encode([y for _, y in pts], device)))
+    return (ncoords, packed, torch.from_numpy(digits).to(device), half + 1, True, lanes)
+
+
+# ---------------------------------------------------------------------------
+# Work the inputs need: (Montgomery products, bytes read once and written once)
+# ---------------------------------------------------------------------------
+
+def _lanes(t) -> int:
+    return t.shape[-1]
+
+
+def _io(b, coords_in_out: int):
+    return coords_in_out * FQ_BYTES * b
+
+
+# Montgomery products per lane of the device formulas (csrc/bn254.cuh,
+# csrc/groups.cuh): an Fq2 product is 3, an Fq2 square 2.
+_FQ12_SQR, _G2_DBL_STEP, _G2_ADD_STEP, _FOLD = 36, 28, 37, 43
+_ADD = {1: 16, 2: 43}          # unified add, generic formula (no double)
+_DBL = {1: 7, 2: 16}
+_MADD = {1: 11, 2: 30}
+
+
+def _w_mont(a, b, mod):
+    return _lanes(a), _io(_lanes(a), 3)
+
+
+def _w_mont_sqr(a, mod):
+    return _lanes(a), _io(_lanes(a), 2)
+
+
+def _w_fq_pow(a, e):
+    bits = FU._msb_bits(e)
+    return _lanes(a) * (len(bits) + int(bits.sum())), _io(_lanes(a), 2)
+
+
+def _w_miller(q, p, kinds):
+    k = np.asarray(kinds).ravel()
+    per = int(((k == 0) * (_FQ12_SQR + _G2_DBL_STEP) + (k != 0) * _G2_ADD_STEP).sum()
+              + len(k) * _FOLD)
+    return _lanes(p) * per, _io(_lanes(p), 4 + 2 + 12 + 6) + 4 * len(k)
+
+
+def _w_cyc_pow(a, digits):
+    d = np.asarray(digits).ravel()
+    return _lanes(a) * int(18 * len(d) + 54 * (d != 0).sum()), _io(_lanes(a), 24)
+
+
+def msm_work(ncoords, points, digits, nb, signed, lanes):
+    W, n = digits.shape
+    products = (int((digits != 0).sum()) * _MADD[ncoords]
+                + W * lanes * (nb - 1) * 2 * _ADD[ncoords])
+    return products, (_io(n, 2 * ncoords) + 4 * W * n + _io(W * lanes, 3 * ncoords))
+
+
+def bound_ms(products: int, nbytes: int):
+    """(ms, "operations" or "bytes"): the least time the card could take."""
+    ops_ms = products * INSTR_PER_PRODUCT / INT_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
 _PK = "bn254_tpu/pallas_kernels.py"
 _PF = "bn254_tpu/pallas_fused.py"
 _MK_CU = "bn254_tpu_torch/csrc/mont_kernels.cu"
 _FU_CU = "bn254_tpu_torch/csrc/fused.cu"
+_GR_CU = "bn254_tpu_torch/csrc/groups.cu"
 
 CASES = (
     KernelCase("mont_mul", "mont_mul[fq]", _MK_CU, f"{_PK}:239", MK.mont_mul, L.mont_mul,
                lambda rng, b, d: (residues(rng, 1, b, d)[0], residues(rng, 1, b, d)[0],
-                                  MK.FQ_MOD)),
+                                  MK.FQ_MOD), _w_mont),
     KernelCase("mont_mul", "mont_mul[fr]", _MK_CU, f"{_PK}:239", MK.mont_mul, L.mont_mul,
                lambda rng, b, d: (residues(rng, 1, b, d, FR_MOD)[0],
-                                  residues(rng, 1, b, d, FR_MOD)[0], FR_MOD)),
+                                  residues(rng, 1, b, d, FR_MOD)[0], FR_MOD), _w_mont),
     KernelCase("mont_sqr", "mont_sqr[fq]", _MK_CU, f"{_PK}:247", MK.mont_sqr, L.mont_sqr,
-               lambda rng, b, d: (residues(rng, 1, b, d)[0], MK.FQ_MOD)),
+               lambda rng, b, d: (residues(rng, 1, b, d)[0], MK.FQ_MOD), _w_mont_sqr),
     KernelCase("mont_sqr", "mont_sqr[fr]", _MK_CU, f"{_PK}:247", MK.mont_sqr, L.mont_sqr,
-               lambda rng, b, d: (residues(rng, 1, b, d, FR_MOD)[0], FR_MOD)),
+               lambda rng, b, d: (residues(rng, 1, b, d, FR_MOD)[0], FR_MOD), _w_mont_sqr),
     KernelCase("fq2_mul", "fq2_mul", _MK_CU, f"{_PK}:175", MK.fq2_mul, MK.fq2_mul_plain,
-               _fq((2, 2))),
+               _fq((2, 2)), lambda a, b: (3 * _lanes(a), _io(_lanes(a), 6))),
     KernelCase("fq2_sqr", "fq2_sqr", _MK_CU, f"{_PK}:181", MK.fq2_sqr, MK.fq2_sqr_plain,
-               _fq((2,))),
+               _fq((2,)), lambda a: (2 * _lanes(a), _io(_lanes(a), 4))),
     KernelCase("fq_pow", "fq_pow", _FU_CU, f"{_PF}:1253", FU.fq_pow, FU.fq_pow_plain,
-               lambda rng, b, d: (residues(rng, 1, b, d)[0], C.Q - 2)),
+               lambda rng, b, d: (residues(rng, 1, b, d)[0], C.Q - 2), _w_fq_pow),
     KernelCase("miller_precompute", "miller_precompute", _FU_CU, f"{_PF}:1395",
                FU.miller_precompute, FU.miller_precompute_plain,
                lambda rng, b, d: (residues(rng, 4, b, d), residues(rng, 2, b, d),
-                                  _PRE_KINDS.reshape(-1, 1))),
+                                  _PRE_KINDS.reshape(-1, 1)), _w_miller),
     KernelCase("g2_add_step", "g2_add_step", _FU_CU, f"{_PF}:1151", FU.g2_add_step,
-               FU.g2_add_step_plain, _fq((6, 4))),
+               FU.g2_add_step_plain, _fq((6, 4)),
+               lambda r, base: (_G2_ADD_STEP * _lanes(r), _io(_lanes(r), 22))),
     KernelCase("fq12_fold_line", "fq12_fold_line", _FU_CU, f"{_PF}:1029",
                FU.fq12_fold_line, FU.fq12_fold_line_plain,
                lambda rng, b, d: (residues(rng, 12, b, d), residues(rng, 6, b, d),
-                                  *residues(rng, 2, b, d))),
+                                  *residues(rng, 2, b, d)),
+               lambda f, c, px, py: (_FOLD * _lanes(f), _io(_lanes(f), 32))),
     KernelCase("fq12_mul", "fq12_mul", _FU_CU, f"{_PF}:1022", FU.fq12_mul,
-               FU.fq12_mul_plain, _fq((12, 12))),
+               FU.fq12_mul_plain, _fq((12, 12)),
+               lambda a, b: (54 * _lanes(a), _io(_lanes(a), 36))),
     KernelCase("fq12_cyc_sqr", "fq12_cyc_sqr", _FU_CU, f"{_PF}:1027", FU.fq12_cyc_sqr,
-               FU.fq12_cyc_sqr_plain, _fq((12,))),
+               FU.fq12_cyc_sqr_plain, _fq((12,)),
+               lambda a: (18 * _lanes(a), _io(_lanes(a), 24))),
     KernelCase("fq12_cyc_pow", "fq12_cyc_pow[naf]", _FU_CU, f"{_PF}:1267", FU.fq12_cyc_pow,
                FU.fq12_cyc_pow_plain,
-               lambda rng, b, d: (residues(rng, 12, b, d), FU.NAF_Z)),
+               lambda rng, b, d: (residues(rng, 12, b, d), FU.NAF_Z), _w_cyc_pow),
     KernelCase("fq12_cyc_pow", "fq12_cyc_pow[binary]", _FU_CU, f"{_PF}:1267", FU.fq12_cyc_pow,
                FU.fq12_cyc_pow_plain,
-               lambda rng, b, d: (residues(rng, 12, b, d), FU.BINARY_Z)),
+               lambda rng, b, d: (residues(rng, 12, b, d), FU.BINARY_Z), _w_cyc_pow),
+    *(KernelCase("point_add", f"point_add[g{nc}]", _GR_CU, f"{_PF}:789", FU.point_add,
+                 FU.point_add_plain, _points_args(nc, True),
+                 lambda ncoords, p, q: (_ADD[ncoords] * _lanes(p), _io(_lanes(p), 9 * ncoords)))
+      for nc in (1, 2)),
+    *(KernelCase("point_double", f"point_double[g{nc}]", _GR_CU, f"{_PF}:769",
+                 FU.point_double, FU.point_double_plain, _points_args(nc, False),
+                 lambda ncoords, p: (_DBL[ncoords] * _lanes(p), _io(_lanes(p), 6 * ncoords)))
+      for nc in (1, 2)),
+    *(KernelCase("msm_accumulate", f"msm_accumulate[g{nc}]", _GR_CU, f"{_PF}:1635",
+                 FU.msm_accumulate, FU.msm_accumulate_plain,
+                 lambda rng, b, d, nc=nc: msm_args(rng, nc, b, d), msm_work,
+                 batches=(16384, 5000))
+      for nc in (1, 2)),
 )
 
 

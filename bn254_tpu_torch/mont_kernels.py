@@ -21,7 +21,7 @@ import torch
 from . import counts
 from . import limbs as L
 from ._build import check, launch, on_cuda
-from bn254_tpu.spec import constants as C
+from .spec import constants as C
 
 FQ_MOD = L.Mod(C.Q)
 

@@ -23,7 +23,7 @@ from . import groups as G
 from . import tower as T
 from .convert import pack, tree_map, unpack_fq12
 from .fields import FQ
-from bn254_tpu.spec import constants as C
+from .spec import constants as C
 
 F = FQ
 

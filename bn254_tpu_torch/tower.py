@@ -21,7 +21,7 @@ from . import fused as FU
 from . import mont_kernels as MK
 from .convert import pack, unpack_fq12
 from .fields import FQ
-from bn254_tpu.spec import constants as C
+from .spec import constants as C
 
 F = FQ  # the base-field context
 
@@ -109,6 +109,10 @@ def fq2_frob(a, power: int):
 
 def fq2_is_zero(a):
     return F.is_zero(a[0]) & F.is_zero(a[1])
+
+
+def fq2_eq(a, b):
+    return F.eq(a[0], b[0]) & F.eq(a[1], b[1])
 
 
 def fq2_select(mask, a, b):

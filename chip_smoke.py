@@ -1,18 +1,20 @@
-"""Drive the PyTorch + CUDA port's batched reduced pairing once on one
-NVIDIA GPU and check it.
+"""Drive the PyTorch + CUDA port's two main paths, the batched reduced
+pairing and the Pippenger MSM, once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure raises, so the exit code is not 0):
 
-1. Print the card (nvidia-smi name and power limit), build the eleven CUDA
-   kernels from bn254_tpu_torch/csrc/ and print the build's seconds.
+1. Print the card (nvidia-smi name and power limit), build the fourteen
+   CUDA kernels from bn254_tpu_torch/csrc/ and print the build's seconds.
 2. Kernel vs plain version: each kernel on CUDA tensors made from a seed
-   (lanes 0, 1 and 2 of every coordinate hold 0, 1 and q - 1; lane 0 all
-   zero is what to_affine hands the Miller kernels for a point at
-   infinity) at B = 16384 and at a ragged B = 1000, against its plain
-   PyTorch version on the same tensors.  Tolerance 0: these are integers.
-   Each kernel's and each plain version's time at B = 16384 (CUDA events).
+   (bn254_tpu_torch/kernel_cases.py: field residues with 0, 1 and q - 1
+   in the first lanes; real G1/G2 points with the group law's edge lanes;
+   MSM digits over distinct affine points with planted duplicates) at
+   B = 16384 and at a ragged B = 1000 (n = 5000 for the MSM accumulate),
+   against its plain PyTorch version on the same tensors.  Tolerance 0:
+   these are integers.  Each kernel's and each plain version's time at
+   the main batch (CUDA events), beside the bound its inputs give.
 3. Main path, with every launch and plain-call counter reset first:
    ``pairing`` on 16384 Jacobian pairs (z != 1) made by spec additions as
    bench.py makes them, 8 lanes checked against the spec pairing; the
@@ -24,6 +26,17 @@ Phases (any failure raises, so the exit code is not 0):
    its layers on its own: to_affine, Miller loop (without the infinity
    select) and final exponentiation (CUDA events, mean of 3 after a
    warm-up).
+5. MSM path, with the counters reset first: ``msm`` over G1 at n = 2^20
+   and over G2 at n = 2^16, points P_i = (i + 1) G built on the card by
+   doubling the batch with point_add, random scalars from a numpy seed,
+   and planted infinity points, zero scalars, r - 1 and duplicate points;
+   each result is checked projectively against (sum k_i a_i mod r) G from
+   the spec, a_i the multiple lane i holds.  Then ``batch.msm_g1`` /
+   ``msm_g2`` on 64 random points against the spec's sum.  Every kernel
+   of the path must have launched and no plain version may have run.
+6. MSM timing: ms per MSM and points/s for G1 2^20 and G2 2^16, and the
+   split into prepare (digits and affine conversion), accumulate and
+   Horner + lane fold (CUDA events, mean of 3 after a warm-up).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; fails without one.
@@ -70,8 +83,8 @@ def cuda_ms(fn, reps: int) -> float:
 
 def spec_pairs(n: int, seed: int = SEED):
     """bench.py's pairs: 8 spec scalar muls, then chained additions (z != 1)."""
-    from bn254_tpu.spec import group as SG
-    from bn254_tpu.spec.constants import R
+    from bn254_tpu_torch.spec import group as SG
+    from bn254_tpu_torch.spec.constants import R
 
     rng = random.Random(seed)
     (ops1, gen1), (ops2, gen2) = SG.G1_PARAMS[:2], SG.G2_PARAMS[:2]
@@ -97,7 +110,7 @@ def phase_kernels(dev):
     records = {}
     for case in KC.CASES:
         err = 0
-        for batch in (N_MAIN, N_RAGGED):
+        for batch in case.batches:
             args = case.make_args(np.random.default_rng(SEED), batch, dev)
             got, want = case.kernel(*args), case.plain(*args)
             torch.cuda.synchronize()
@@ -105,32 +118,48 @@ def phase_kernels(dev):
                     f"{case.label}: kernel and plain version differ in shape")
             err = max(err, KC.max_abs_err(got, want))
         require(err == 0, f"{case.label}: kernel differs from its plain version by {err}")
-        line = f"kernel {case.label:20s} B={N_MAIN} and {N_RAGGED}: max_abs_err {err}"
+        main_b = case.batches[0]
+        line = (f"kernel {case.label:22s} B={'/'.join(map(str, case.batches))}: "
+                f"max_abs_err {err}")
         rec = records.get(case.name)
-        if rec is None:           # time the first variant (Fq, NAF) at the main batch
-            args = case.make_args(np.random.default_rng(SEED), N_MAIN, dev)
+        if rec is None:           # time the first variant (Fq, NAF, G1) at the main batch
+            args = case.make_args(np.random.default_rng(SEED), main_b, dev)
             ms = cuda_ms(lambda: case.kernel(*args), 10)
             plain_ms = cuda_ms(lambda: case.plain(*args), 1)
+            bound_ms, bound_by = KC.bound_ms(*case.work(*args))
             records[case.name] = rec = {
                 "name": case.name, "route": "cuda", "source": case.source,
                 "replaces": case.replaces, "launches": 0, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms}
-            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                     f"bound {bound_ms:.4f} ms ({bound_by}) at B={main_b}")
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         print(line, flush=True)
     return records
 
 
+def check_launches(path: str, kernels, launches, plain):
+    """Fail unless every kernel of the path launched and no plain version
+    ran; return the path's launch counts."""
+    missing = [k for k in kernels if launches[k] < 1]
+    require(not missing, f"kernels not launched on the {path} path: {missing}")
+    ran_plain = {k: v for k, v in plain.items() if v}
+    require(not ran_plain, f"plain versions ran on the {path} path: {ran_plain}")
+    print(f"launches on the {path} path:", json.dumps(launches), flush=True)
+    return launches
+
+
 def phase_main_path(dev, ps, qs):
     """The main path once, with the counters reset around it."""
     import golden
-    from bn254_tpu.spec import field as SF
-    from bn254_tpu.spec import group as SG
-    from bn254_tpu.spec.constants import R
     from bn254_tpu_torch import convert, counts
     from bn254_tpu_torch import groups as G
     from bn254_tpu_torch import pairing as P
     from bn254_tpu_torch import tower as T
+    from bn254_tpu_torch.spec import field as SF
+    from bn254_tpu_torch.spec import group as SG
+    from bn254_tpu_torch.spec.constants import R
 
     ops1, ops2 = SG.G1_PARAMS[0], SG.G2_PARAMS[0]
     gen1 = (SG.G1_PARAMS[1][0], SG.G1_PARAMS[1][1], ops1.one)
@@ -174,12 +203,7 @@ def phase_main_path(dev, ps, qs):
     print(f"main path: pairing B={N_MAIN} (8 lanes = spec), golden pair, "
           f"5-pair batch with 2 infinity pairs, ECPAIRING check: all agree", flush=True)
 
-    missing = [k for k, v in launches.items() if v < 1]
-    require(not missing, f"kernels not launched on the main path: {missing}")
-    ran_plain = {k: v for k, v in plain.items() if v}
-    require(not ran_plain, f"plain versions ran on the main path: {ran_plain}")
-    print("launches on the main path:", json.dumps(launches), flush=True)
-    return launches
+    return check_launches("pairing", counts.PAIRING_PATH, launches, plain)
 
 
 def phase_timing(dev, ps, qs, card):
@@ -199,6 +223,126 @@ def phase_timing(dev, ps, qs, card):
     print(f"pairing B={N_MAIN}: {total_ms:.2f} ms = {N_MAIN / total_ms * 1e3:.0f} pairings/s; "
           f"to_affine {split[0]:.2f} ms, Miller {split[1]:.2f} ms, final exp {split[2]:.2f} ms "
           f"[{card}]", flush=True)
+
+
+MSM_SIZES = {1: 1 << 20, 2: 1 << 16}   # G1 at BASELINE.md's 2^20 points; G2 at 2^16
+
+
+def msm_inputs(K, dev, n: int, rng):
+    """Points P_i = (i + 1) G built on the card (P[2^k : 2^(k+1)] =
+    P[0 : 2^k] + 2^k G, one point_add each), scalars from a numpy seed
+    (limbs below r's top limb), and planted edges.  Returns (point batch,
+    scalar limbs [16, n], the multiples a_i, the scalars k_i)."""
+    import numpy as np
+    from bn254_tpu_torch import fused as FU
+    from bn254_tpu_torch import groups as G
+    from bn254_tpu_torch import limbs as L
+    from bn254_tpu_torch import msm as M
+    from bn254_tpu_torch.convert import pack, unpack_point
+    from bn254_tpu_torch.spec import group as SG
+    from bn254_tpu_torch.spec.constants import R
+
+    nc = K.COORDS
+    ops, gen = (SG.G1_PARAMS if nc == 1 else SG.G2_PARAMS)[:2]
+    g = (gen[0], gen[1], ops.one)
+    pts = torch.empty((3 * nc, 16, n), dtype=torch.int32, device=dev)
+    pts[:, :, :1] = pack(G.encode_points(K, [g], dev))
+    m = 1
+    while m < n:
+        step = pack(G.encode_points(K, [SG.scalar_mul(g, m, ops)], dev))
+        pts[:, :, m:2 * m] = FU.point_add(nc, pts[:, :, :m].contiguous(),
+                                          step.expand(-1, -1, m).contiguous())
+        m *= 2
+    mult = list(range(1, n + 1))
+    limbs = rng.integers(0, 1 << 16, size=(16, n), dtype=np.int64)
+    limbs[15] %= (R >> 240)                     # below r's top limb: k < r
+    ks = L._limbs_to_ints(limbs)
+    lanes = M.LANES
+    for j in range(4):      # a point meets its own bucket: same lane, same scalar
+        pts[:, :, lanes + j] = pts[:, :, j]
+        mult[lanes + j], ks[lanes + j] = mult[j], ks[j]
+    pts[:, :, 2 * lanes + 5] = pts[:, :, 5]     # a duplicate with another scalar
+    mult[2 * lanes + 5] = mult[5]
+    for j in (7, n // 3, n - 1):                # infinity points
+        pts[2 * nc:, :, j] = 0
+        mult[j] = 0
+    for j in (8, n // 2):
+        ks[j] = 0
+    for j in (9, n // 5, n - 2):
+        ks[j] = R - 1
+    return unpack_point(nc, pts), M.encode_scalars(ks, dev), mult, ks
+
+
+def phase_msm(dev):
+    """The MSM path once, with the counters reset around it."""
+    import numpy as np
+    from bn254_tpu_torch import batch as BA
+    from bn254_tpu_torch import counts
+    from bn254_tpu_torch import groups as G
+    from bn254_tpu_torch import msm as M
+    from bn254_tpu_torch.spec import group as SG
+    from bn254_tpu_torch.spec.constants import R
+
+    rng = np.random.default_rng(SEED + 2)
+    inputs = {K: msm_inputs(K, dev, MSM_SIZES[K.COORDS], rng) for K in (G.G1, G.G2)}
+    rnd = random.Random(SEED + 3)
+    small = {}
+    for K, (ops, gen) in ((G.G1, SG.G1_PARAMS[:2]), (G.G2, SG.G2_PARAMS[:2])):
+        g = (gen[0], gen[1], ops.one)
+        pts = [SG.scalar_mul(g, rnd.randrange(1, R), ops) for _ in range(64)]
+        pts[3] = None
+        ks = [rnd.randrange(R) for _ in range(64)]
+        ks[4], ks[5] = 0, R - 1
+        pts[6] = pts[10]
+        small[K] = (pts, ks)
+
+    counts.reset()
+    torch.cuda.synchronize()
+    out = {K: M.msm(K, pts, k) for K, (pts, k, _, _) in inputs.items()}
+    small_out = {K: (BA.msm_g1 if K is G.G1 else BA.msm_g2)(pts, ks)
+                 for K, (pts, ks) in small.items()}
+    torch.cuda.synchronize()
+    launches, plain = dict(counts.launches), dict(counts.plain_calls)
+
+    for K, (_, _, mult, ks) in inputs.items():
+        ops, gen = (SG.G1_PARAMS if K is G.G1 else SG.G2_PARAMS)[:2]
+        total = sum(k * a for k, a in zip(ks, mult)) % R
+        want = SG.scalar_mul((gen[0], gen[1], ops.one), total, ops)
+        got = G.decode_points(K, out[K])[0]
+        require(SG.eq(got, want, ops),
+                f"msm G{K.COORDS} n={len(mult)} differs from (sum k_i a_i) G")
+        pts, ks = small[K]
+        want = SG.zero(ops)
+        for p, k in zip(pts, ks):
+            if p is not None:
+                want = SG.add(want, SG.scalar_mul(p, k, ops), ops)
+        require(SG.eq(small_out[K], want, ops), f"64-point msm G{K.COORDS} differs from the spec")
+    print(f"MSM path: G1 n={MSM_SIZES[1]} and G2 n={MSM_SIZES[2]} = (sum k_i a_i) G; "
+          f"64-point G1 and G2 MSMs = spec sums", flush=True)
+    return check_launches("MSM", counts.MSM_PATH, launches, plain), inputs
+
+
+def phase_msm_timing(inputs, card):
+    """ms per MSM, points/s, the split into its three steps and the
+    accumulate's bound on these inputs."""
+    from bn254_tpu_torch import fused as FU
+    from bn254_tpu_torch import kernel_cases as KC
+    from bn254_tpu_torch import msm as M
+
+    for K, (pts, ks, _, _) in inputs.items():
+        n, c, nc = ks.shape[-1], M.MSM_FUSED_WINDOW[K.COORDS], K.COORDS
+        total = cuda_ms(lambda: M.msm(K, pts, ks), 3)
+        packed, dgs = M.prepare(K, pts, ks, c)
+        acc = lambda: FU.msm_accumulate(nc, packed, dgs, (1 << (c - 1)) + 1, lanes=M.LANES)
+        totals = acc()
+        split = (cuda_ms(lambda: M.prepare(K, pts, ks, c), 3), cuda_ms(acc, 3),
+                 cuda_ms(lambda: M.combine(K, totals, c), 3))
+        bound, by = KC.bound_ms(*KC.msm_work(nc, packed, dgs, (1 << (c - 1)) + 1, True,
+                                             M.LANES))
+        print(f"msm G{nc} n={n} c={c} lanes={M.LANES}: {total:.2f} ms = "
+              f"{n / total * 1e3:.0f} points/s; prepare {split[0]:.2f} ms, accumulate "
+              f"{split[1]:.2f} ms (bound {bound:.2f} ms, {by}), Horner + fold "
+              f"{split[2]:.2f} ms [{card}]", flush=True)
 
 
 def main():
@@ -221,9 +365,11 @@ def main():
     ps, qs = spec_pairs(N_MAIN)
     launches = phase_main_path(dev, ps, qs)
     phase_timing(dev, ps, qs, card)
+    msm_launches, inputs = phase_msm(dev)
+    phase_msm_timing(inputs, card)
 
-    for name, rec in records.items():
-        rec["launches"] = launches[name]
+    for name, rec in records.items():      # launches over both main-path runs
+        rec["launches"] = launches[name] + msm_launches[name]
     require(sorted(records) == sorted(counts.KERNELS), "a kernel has no comparison record")
     print(card)
     print(json.dumps({"kernels": [records[k] for k in counts.KERNELS]}))

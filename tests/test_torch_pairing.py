@@ -3,6 +3,7 @@ on the CPU, plain versions of every kernel) against the JAX package's
 pairing, the spec oracle and the reference's golden vectors, on the same
 inputs.  Comparisons are exact."""
 
+import ast
 import os
 import random
 import subprocess
@@ -195,7 +196,7 @@ def test_all_infinity_batch_is_identity():
 def test_main_path_reaches_every_kernel_with_valid_arguments(monkeypatch):
     """The main path with the wrappers taking their kernel branch on CPU
     tensors and the launch stubbed out: every wrapper's device, dtype,
-    shape and contiguity check passes, each of the eleven kernels is
+    shape and contiguity check passes, each of the path's eleven kernels is
     reached, and no plain version runs (what chip_smoke.py asserts on the
     card).  Batches 1 to 5 cover the product reduction's odd tails."""
     def launch(name, batch, *args):
@@ -213,19 +214,22 @@ def test_main_path_reaches_every_kernel_with_valid_arguments(monkeypatch):
     for n in range(1, 6):
         P.pairing_batch(G.encode_points(G.G1, ps[:n], "cpu"),
                         G.encode_points(G.G2, qs[:n], "cpu"))
-    assert sorted(k for k, v in counts.launches.items() if v) == sorted(counts.KERNELS)
+    assert sorted(k for k, v in counts.launches.items() if v) == sorted(counts.PAIRING_PATH)
     assert not any(counts.plain_calls.values())
     assert counts.launches["miller_precompute"] == 6
     assert counts.launches["fq12_cyc_pow"] == 3 * 6
 
 
 def test_import_leaves_jax_unloaded():
-    """The port and everything it imports run without jax (the card's
-    machine has none)."""
+    """The port and everything it imports run without jax and without the
+    JAX package (the card's machine has no jax, and the port keeps its own
+    copy of the spec): after importing every module of bn254_tpu_torch, no
+    jax module and no bn254_tpu module is loaded."""
     code = ("import sys, pkgutil, importlib, bn254_tpu_torch as m\n"
-            "for i in pkgutil.iter_modules(m.__path__):\n"
-            "    importlib.import_module('bn254_tpu_torch.' + i.name)\n"
-            "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib')))\n"
+            "for i in pkgutil.walk_packages(m.__path__, 'bn254_tpu_torch.'):\n"
+            "    importlib.import_module(i.name)\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib'))\n"
+            "             or k == 'bn254_tpu' or k.startswith('bn254_tpu.'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -233,3 +237,56 @@ def test_import_leaves_jax_unloaded():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def _imported_modules(path):
+    """Every module an `import` or `from ... import` in the file names,
+    wherever it stands (chip_smoke.py imports inside its functions);
+    relative imports resolve to the port's package."""
+    tree = ast.parse(open(path).read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append("bn254_tpu_torch" if node.level else node.module)
+    return names
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, fs in os.walk(os.path.join(REPO, "bn254_tpu_torch")):
+        files += [os.path.join(root, f) for f in fs if f.endswith(".py")]
+    assert len(files) > 15
+    for path in files:
+        for name in _imported_modules(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "bn254_tpu"), (path, name)
+
+
+def test_spec_copy_equals_the_jax_package_spec():
+    """bn254_tpu_torch/spec is a copy of bn254_tpu/spec: every public
+    constant is equal, and so are scalar_mul, pairing and the final
+    exponentiation on a few inputs."""
+    import bn254_tpu.spec.constants as JC
+    import bn254_tpu.spec.field as JF
+    import bn254_tpu.spec.group as JSG
+    from bn254_tpu_torch.spec import constants as PC
+    from bn254_tpu_torch.spec import field as PF
+    from bn254_tpu_torch.spec import group as PSG
+
+    public = lambda m: {k for k in vars(m) if not k.startswith("_")}
+    for jm, pm in ((JC, PC), (JF, PF), (JSG, PSG)):
+        assert public(jm) == public(pm)
+    for k in public(JC):
+        assert getattr(JC, k) == getattr(PC, k), k
+    rng = random.Random(SEED + 7)
+    for jp, pp in ((JSG.G1_PARAMS, PSG.G1_PARAMS), (JSG.G2_PARAMS, PSG.G2_PARAMS)):
+        gen = (jp[1][0], jp[1][1], jp[0].one)
+        for _ in range(2):
+            k = rng.randrange(R)
+            assert JSG.scalar_mul(gen, k, jp[0]) == PSG.scalar_mul(gen, k, pp[0])
+    p, q = _g1(rng.randrange(1, R)), _g2(rng.randrange(1, R))
+    assert JSG.pairing(p, q) == PSG.pairing(p, q)
+    f = tuple(tuple((rng.randrange(Q), rng.randrange(Q)) for _ in range(3)) for _ in range(2))
+    assert JF.fq12_final_exponentiation(f) == PF.fq12_final_exponentiation(f)
