@@ -14,22 +14,20 @@ from . import groups as G
 from . import msm as M
 
 
-def _msm(K, points, scalars, device, lanes):
+def _msm(K, points, scalars, device):
     points, scalars = list(points), list(scalars)
     if not points or len(points) != len(scalars):
         raise ValueError(f"msm: want as many scalars as points, at least one; got "
                          f"{len(points)} points and {len(scalars)} scalars")
-    out = M.msm(K, G.encode_points(K, points, device), M.encode_scalars(scalars, device),
-                lanes=lanes)
+    out = M.msm(K, G.encode_points(K, points, device), M.encode_scalars(scalars, device))
     return G.decode_points(K, out)[0]
 
 
-def msm_g1(points, scalars, device="cuda", lanes=M.LANES):
-    """sum_i scalars[i] * points[i] in G1 (Pippenger), as a spec triple.
-    lanes (a power of two) plays the part of the JAX entry's tiles."""
-    return _msm(G.G1, points, scalars, device, lanes)
+def msm_g1(points, scalars, device="cuda"):
+    """sum_i scalars[i] * points[i] in G1 (Pippenger), as a spec triple."""
+    return _msm(G.G1, points, scalars, device)
 
 
-def msm_g2(points, scalars, device="cuda", lanes=M.LANES):
+def msm_g2(points, scalars, device="cuda"):
     """sum_i scalars[i] * points[i] in G2 (Pippenger), as a spec triple."""
-    return _msm(G.G2, points, scalars, device, lanes)
+    return _msm(G.G2, points, scalars, device)

@@ -137,6 +137,11 @@ def _lookahead_consts(device):
     return c
 
 
+def _shift_up(hi):
+    """Move each limb's carry one limb up (the top carry leaves)."""
+    return torch.nn.functional.pad(hi[..., :-1, :], (0, 0, 1, 0))
+
+
 def _carry(x, rounds: int):
     """Carry-normalise non-negative int64 limbs [..., 16, B].
 
@@ -148,8 +153,7 @@ def _carry(x, rounds: int):
         hi = x >> LIMB_BITS
         top = hi[..., -1, :]
         out = top if out is None else out + top
-        x = x & MASK
-        x[..., 1:, :] += hi[..., :-1, :]     # each limb's carry one limb up
+        x = (x & MASK) + _shift_up(hi)
     # every limb is now <= 2^16: limb == 2^16 generates a carry, limb ==
     # 2^16 - 1 propagates one.  Adding the generate and generate|propagate
     # bit vectors as integers runs the whole ripple in one int64 add.
@@ -157,8 +161,8 @@ def _carry(x, rounds: int):
     g = x >> LIMB_BITS
     p = (x == MASK).to(torch.int64)
     s = ((g | p) * w).sum(-2) + (g * w).sum(-2)
-    x += ((s.unsqueeze(-2) >> sh) & 1) ^ p
-    return x.bitwise_and_(MASK), out + (s >> N_LIMBS)
+    cin = ((s.unsqueeze(-2) >> sh) & 1) ^ p
+    return (x + cin) & MASK, out + (s >> N_LIMBS)
 
 
 def _cond_sub(x, c):
@@ -207,16 +211,8 @@ def _product_columns(a, b):
     int64 (column k = sum over i + j = k of a_i b_j, < 2^36; column 31 is
     0).  The anti-diagonal sums come from one skewed view: rows of the
     padded [16, 32] product table laid out with stride 31 put a_i b_j at
-    column i + j.  Past about 2^15 elements an operand, 16 shifted
-    multiply-adds cost fewer memory passes than the [16, 32] table."""
+    column i + j."""
     n = N_LIMBS
-    if max(a.numel(), b.numel()) >= 1 << 15:
-        shape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
-        cols = torch.zeros(shape + (2 * n, max(a.shape[-1], b.shape[-1])),
-                           dtype=torch.int64, device=a.device)
-        for i in range(n):
-            cols[..., i:i + n, :] += a[..., i:i + 1, :] * b
-        return cols
     prod = a.unsqueeze(-2) * b.unsqueeze(-3)                 # [..., 16(i), 16(j), B]
     prod = torch.nn.functional.pad(prod, (0, 0, 0, n))       # [..., 16, 32, B]
     lead, bsz = prod.shape[:-3], prod.shape[-1]

@@ -134,14 +134,15 @@ def _msm_fused(K, points, scalars, c: int, num_bits: int = 254, lanes: int = LAN
     return unpack_point(K.COORDS, combine(K, totals, c))
 
 
-def msm(K, points, scalars, c: int | None = None, num_bits: int = 256, lanes: int = LANES):
+def msm(K, points, scalars, c: int | None = None, num_bits: int = 256,
+        lanes: int | None = None):
     """sum_i scalars[i] * points[i] over group K -> a batch-1 Jacobian point.
 
     points: Jacobian point batch [.., n]; scalars: canonical limbs [16, n]
     int32 (``encode_scalars``).  num_bits is a static bound on the scalar
     bit length, trusted as-is (bits at or above it are dropped); scalars
     mod r need 254, which is what the default 256 becomes.  c defaults to
-    MSM_FUSED_WINDOW; lanes must be a power of two."""
+    MSM_FUSED_WINDOW; lanes, a power of two, defaults to LANES."""
     if c is None:
         c = MSM_FUSED_WINDOW[K.COORDS]
-    return _msm_fused(K, points, scalars, c, min(num_bits, 254), lanes)
+    return _msm_fused(K, points, scalars, c, min(num_bits, 254), lanes or LANES)

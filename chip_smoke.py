@@ -36,7 +36,10 @@ Phases (any failure raises, so the exit code is not 0):
    of the path must have launched and no plain version may have run.
 6. MSM timing: ms per MSM and points/s for G1 2^20 and G2 2^16, and the
    split into prepare (digits and affine conversion), accumulate and
-   Horner + lane fold (CUDA events, mean of 3 after a warm-up).
+   Horner + lane fold (CUDA events, mean of 3 after a warm-up).  On the
+   same prepared inputs (all 1024 point tiles a lane for G1, 64 for G2)
+   the accumulate kernel must equal its plain version bit for bit; the
+   kernels line takes row 19's times and bound from the G1 2^20 inputs.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; fails without one.
@@ -79,6 +82,17 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_once(fn):
+    """(fn(), its ms) for one call, timed with CUDA events."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def spec_pairs(n: int, seed: int = SEED):
@@ -323,26 +337,39 @@ def phase_msm(dev):
 
 
 def phase_msm_timing(inputs, card):
-    """ms per MSM, points/s, the split into its three steps and the
-    accumulate's bound on these inputs."""
+    """ms per MSM, points/s, the split into its three steps; and the
+    accumulate kernel on the path's own inputs against its plain version
+    (tolerance 0), timed beside its bound.  Returns {ncoords: record}."""
     from bn254_tpu_torch import fused as FU
     from bn254_tpu_torch import kernel_cases as KC
     from bn254_tpu_torch import msm as M
 
+    records = {}
     for K, (pts, ks, _, _) in inputs.items():
         n, c, nc = ks.shape[-1], M.MSM_FUSED_WINDOW[K.COORDS], K.COORDS
+        nb = (1 << (c - 1)) + 1
         total = cuda_ms(lambda: M.msm(K, pts, ks), 3)
         packed, dgs = M.prepare(K, pts, ks, c)
-        acc = lambda: FU.msm_accumulate(nc, packed, dgs, (1 << (c - 1)) + 1, lanes=M.LANES)
+        acc = lambda: FU.msm_accumulate(nc, packed, dgs, nb, lanes=M.LANES)
         totals = acc()
         split = (cuda_ms(lambda: M.prepare(K, pts, ks, c), 3), cuda_ms(acc, 3),
                  cuda_ms(lambda: M.combine(K, totals, c), 3))
-        bound, by = KC.bound_ms(*KC.msm_work(nc, packed, dgs, (1 << (c - 1)) + 1, True,
-                                             M.LANES))
+        bound, by = KC.bound_ms(*KC.msm_work(nc, packed, dgs, nb, True, M.LANES))
         print(f"msm G{nc} n={n} c={c} lanes={M.LANES}: {total:.2f} ms = "
               f"{n / total * 1e3:.0f} points/s; prepare {split[0]:.2f} ms, accumulate "
               f"{split[1]:.2f} ms (bound {bound:.2f} ms, {by}), Horner + fold "
               f"{split[2]:.2f} ms [{card}]", flush=True)
+        want, plain_ms = cuda_once(lambda: FU.msm_accumulate_plain(nc, packed, dgs, nb,
+                                                                    lanes=M.LANES))
+        err = KC.max_abs_err(totals, want)
+        require(err == 0, f"msm_accumulate[g{nc}] on the MSM path's inputs (n={n}) "
+                          f"differs from its plain version by {err}")
+        print(f"kernel msm_accumulate[g{nc}] on the path's inputs n={n}: max_abs_err 0; "
+              f"kernel {split[1]:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({by}) [{card}]", flush=True)
+        records[nc] = {"max_abs_err": err, "ms": split[1], "plain_ms": plain_ms,
+                       "bound_ms": bound, "bound_by": by}
+    return records
 
 
 def main():
@@ -366,7 +393,8 @@ def main():
     launches = phase_main_path(dev, ps, qs)
     phase_timing(dev, ps, qs, card)
     msm_launches, inputs = phase_msm(dev)
-    phase_msm_timing(inputs, card)
+    records["msm_accumulate"].update(phase_msm_timing(inputs, card)[1])   # G1 2^20
+    print(f"all phases: {time.perf_counter() - t0:.0f} s from the build's start", flush=True)
 
     for name, rec in records.items():      # launches over both main-path runs
         rec["launches"] = launches[name] + msm_launches[name]

@@ -121,11 +121,13 @@ def _spec_sum(nc, pts, ks):
     return want
 
 
-def test_msm_g1_on_cpu_equals_spec():
-    """batch.msm_g1(..., device="cpu") end to end at lanes = 128 and the
-    default window (c = 6: windows straddle limbs)."""
+def test_msm_g1_on_cpu_equals_spec(monkeypatch):
+    """batch.msm_g1(..., device="cpu") end to end at the default window
+    (c = 6: windows straddle limbs), with 128 lanes in place of 1024 to
+    keep the CPU run short."""
+    monkeypatch.setattr(M, "LANES", 128)
     pts, ks = _msm_case(1)
-    got = BA.msm_g1(pts, ks, device="cpu", lanes=128)
+    got = BA.msm_g1(pts, ks, device="cpu")
     assert SG.eq(got, _spec_sum(1, pts, ks), PARAMS[1][0])
 
 
