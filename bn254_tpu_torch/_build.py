@@ -8,10 +8,10 @@ header or the flags change (the library's file name carries their hash).
 
 Field constants reach the kernels through ``_build/bn254_consts.h``,
 generated here from ``bn254_tpu_torch.spec.constants`` (the port's copy of
-the oracle) through the port's ``Mod``: the Fq modulus and -q^-1 mod 2^32,
-and the Montgomery forms of 1, 1/2 and the twist coefficient b2.  (The
-Montgomery kernels take their modulus as an argument instead, so they
-serve Fr as well.)
+the oracle) through the port's ``Mod``: the Fq modulus, -q^-1 mod 2^32,
+q^2 (16 words: the lazy Fq2 product's offset) and the Montgomery forms
+of 1, 1/2 and the twist coefficient b2.  (The Montgomery kernels take
+their modulus as an argument instead, so they serve Fr as well.)
 
 Every C entry returns ``cudaGetLastError()`` right after its launch;
 ``launch`` raises if it is not 0 and otherwise adds one to the kernel's
@@ -35,7 +35,7 @@ from .spec import constants as C
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("mont_kernels.cu", "fused.cu", "groups.cu")
+SOURCES = ("mont_kernels.cu", "fused.cu", "groups.cu", "probes.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
@@ -59,14 +59,18 @@ _SIGS = {
     "fq12_sqr": "pp",            # a, out
     "g2_dbl_step": "ppp",        # r, r_out, coeff_out
     "glv_ladder": "ipipp",       # ncoords, digits, nsteps, pts, out
+    "fq2_mul_fused": "ppp",      # a, b, out
+    "fq2_sqr_fused": "pp",       # a, out
+    "chain_mont": "ipppi",       # impl, a, b, out, chain
+    "chain_tower": "ipppi",      # op, a, b, out, chain
 }
 assert tuple(_SIGS) == counts.KERNELS
 
 _LIB = None
 
 
-def _words(v: int) -> str:
-    return ", ".join(f"0x{(v >> (32 * j)) & 0xFFFFFFFF:08x}u" for j in range(8))
+def _words(v: int, n: int = 8) -> str:
+    return ", ".join(f"0x{(v >> (32 * j)) & 0xFFFFFFFF:08x}u" for j in range(n))
 
 
 def consts_header() -> str:
@@ -78,6 +82,7 @@ def consts_header() -> str:
         "#pragma once",
         f"#define BN254_FQ_Q {_words(C.Q)}",
         f"#define BN254_FQ_QINV 0x{fq.qinv32:08x}u",
+        f"#define BN254_FQ_Q_SQUARED {_words(C.Q ** 2, 16)}",
         f"#define BN254_FQ_ONE {_words(mont(1))}",
         f"#define BN254_FQ_TWO_INV {_words(mont(pow(2, C.Q - 2, C.Q)))}",
         f"#define BN254_B2_C0 {_words(mont(C.B2[0]))}",
@@ -176,6 +181,11 @@ def launch(name: str, batch: int, *args):
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.bn254_error_string(rc).decode()}")
     counts.launches[name] += 1
+
+
+def resolve_device(device) -> torch.device:
+    """An entry point's device: the card unless the caller names another."""
+    return torch.device("cuda" if device is None else device)
 
 
 def on_cuda(t: torch.Tensor) -> bool:

@@ -5,7 +5,7 @@ A wrapper adds one to ``launches[name]`` where it launches its CUDA kernel
 and nowhere else; a plain version adds one to ``plain_calls[name]`` each
 time it runs.  ``chip_smoke.py`` resets both before it drives a main path
 (the pairing, the MSM, the GLV scalar multiplication, the prepared-G2
-Miller loop) and reads them after, to show the path went through every
+Miller loop, the throughput probes, the point decompression) and reads them after, to show the path went through every
 kernel it uses and through no plain version.
 """
 
@@ -15,6 +15,7 @@ KERNELS = (
     "fq12_mul", "fq12_cyc_sqr", "fq12_cyc_pow",
     "point_add", "point_double", "msm_accumulate",
     "fq12_sqr", "g2_dbl_step", "glv_ladder",
+    "fq2_mul_fused", "fq2_sqr_fused", "chain_mont", "chain_tower",
 )
 
 # The kernels each main path launches (chip_smoke.py asserts every one).
@@ -25,6 +26,13 @@ GLV_PATH = ("mont_mul",                  # endo: beta x
             "point_add", "glv_ladder")   # p1 + p2, the ladder
 PREPARED_MILLER_PATH = ("fq2_mul",       # the Frobenius bases
                         "g2_dbl_step", "g2_add_step", "fq12_sqr", "fq12_fold_line")
+PROBE_PATH = ("chain_mont", "chain_tower",
+              # each op once as its own kernel, beside its in-chain rate
+              "mont_mul", "mont_sqr", "fq2_mul_fused", "fq2_sqr_fused",
+              "fq12_sqr", "fq12_mul", "fq12_cyc_sqr")
+CODEC_PATH = ("mont_mul", "mont_sqr", "fq2_mul", "fq2_sqr",   # curve equation, y choice
+              "fq_pow",                                       # the Fq sqrt
+              "point_add", "point_double")                    # G2 subgroup check
 
 launches = dict.fromkeys(KERNELS, 0)
 plain_calls = dict.fromkeys(KERNELS, 0)

@@ -14,8 +14,10 @@
 //
 // Arithmetic.  Montgomery CIOS over 32-bit words with 64-bit accumulators
 // in plain C (each step one 32x32->64 multiply-add); every value is kept
-// fully reduced after each op (no lazy reduction), so the outputs are the
-// JAX package's canonical limbs bit for bit.
+// fully reduced after each op, so the outputs are the JAX package's
+// canonical limbs bit for bit.  The one lazy-reduction op, fq2_mul_lazy
+// (two reductions of 512-bit products instead of three CIOS products),
+// also ends canonical; its bounds are stated beside it.
 //
 // Code size.  Fq ops are forced inline; the Fq2 products and everything
 // above them are static __noinline__ functions taking references, so each
@@ -242,6 +244,118 @@ static __device__ __noinline__ void fq2_sqr(Fq2& r, const Fq2& a) {
   fq_mul(t, s, d);
   r.c0 = t;
   fq_add(r.c1, ab, ab);
+}
+
+// ---------------------------------------------------------------------------
+// Lazy-reduction Fq2 product (pallas_fused.py kfq2_mul, the TPU's default
+// spelling since _LAZY_FQ2): the three Karatsuba products stay as 512-bit
+// integers and each output coefficient takes one Montgomery reduction, 2
+// reductions instead of fq2_mul's 3.  The TPU keeps signed 16-bit-limb
+// columns; here the values are unsigned 16-word integers, made
+// non-negative by their bounds:
+//   sa = a0 + a1, sb = b0 + b1 are left unreduced: < 2q < 2^255, 8 words.
+//   c1 = sa * sb - a0 b0 - a1 b1 = a0 b1 + a1 b0, in [0, 2q^2).
+//   c0 = a0 b0 + q^2 - a1 b1, in (0, 2q^2): the offset q^2 adds q * q,
+//        a multiple of q, so the residue is a0 b0 - a1 b1's.
+// Both are below q * 2^256 (2q < 2^256), the bound of redc_wide, which
+// then returns the canonical residue: the same value as fq2_mul.
+// ---------------------------------------------------------------------------
+
+// r = a * b: 8 x 8 words -> 16 words, schoolbook by rows
+__device__ __forceinline__ void wide_mul(uint32_t r[16], const uint32_t a[8],
+                                         const uint32_t b[8]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) r[j] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint64_t s = (uint64_t)a[j] * b[i] + r[i + j] + c;
+      r[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    r[i + 8] = (uint32_t)c;  // not yet written by an earlier row
+  }
+}
+
+// r = a + b over 16 words; the callers' bounds leave no carry out
+__device__ __forceinline__ void wide_add(uint32_t r[16], const uint32_t a[16],
+                                         const uint32_t b[16]) {
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    uint64_t x = (uint64_t)a[j] + b[j] + c;
+    r[j] = (uint32_t)x;
+    c = x >> 32;
+  }
+}
+
+// r = a - b over 16 words, for a >= b
+__device__ __forceinline__ void wide_sub(uint32_t r[16], const uint32_t a[16],
+                                         const uint32_t b[16]) {
+  uint32_t br = 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    uint64_t x = (uint64_t)a[j] - b[j] - br;
+    r[j] = (uint32_t)x;
+    br = (uint32_t)(x >> 63);
+  }
+}
+
+// T * 2^-256 mod q, canonical, for a 16-word T < q * 2^256 (destroys t).
+// Word-by-word Montgomery reduction: each round adds mm * q * 2^(32 i),
+// which clears word i; the sum stays below T + q * 2^256 < 2q * 2^256 <
+// 2^511, so no carry leaves word 15, and the upper half t[8..15] is the
+// reduced value, below 2q: one conditional subtraction ends it.  A round's
+// carry out of word i + 8 belongs to word i + 9, where the next round's
+// carry lands, so it is added there.
+__device__ __forceinline__ void redc_wide(Fq& r, uint32_t t[16], const Modulus& m) {
+  uint32_t hi = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint32_t mm = t[i] * m.qinv;
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint64_t s = (uint64_t)mm * m.q[j] + t[i + j] + c;
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[i + 8] + c + hi;
+    t[i + 8] = (uint32_t)s;
+    hi = (uint32_t)(s >> 32);
+  }
+  Fq out;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) out.v[j] = t[j + 8];
+  cond_sub(out.v, m);
+  r = out;
+}
+
+static __device__ __noinline__ void fq2_mul_lazy(Fq2& r, const Fq2& a, const Fq2& b) {
+  const Modulus m = fq_modulus();
+  const uint32_t q_squared[16] = {BN254_FQ_Q_SQUARED};
+  uint32_t sa[8], sb[8], m00[16], m11[16], cross[16], t[16];
+  uint64_t ca = 0, cb = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {  // < 2q < 2^255: no carry out
+    uint64_t x = (uint64_t)a.c0.v[j] + a.c1.v[j] + ca;
+    uint64_t y = (uint64_t)b.c0.v[j] + b.c1.v[j] + cb;
+    sa[j] = (uint32_t)x;
+    sb[j] = (uint32_t)y;
+    ca = x >> 32;
+    cb = y >> 32;
+  }
+  wide_mul(m00, a.c0.v, b.c0.v);
+  wide_mul(m11, a.c1.v, b.c1.v);
+  wide_mul(cross, sa, sb);
+  wide_sub(cross, cross, m00);
+  wide_sub(cross, cross, m11);  // a0 b1 + a1 b0
+  wide_add(t, m00, q_squared);
+  wide_sub(t, t, m11);          // a0 b0 - a1 b1 + q^2
+  redc_wide(r.c0, t, m);
+  redc_wide(r.c1, cross, m);
 }
 
 // scale by an Fq element (fq2.rs:48)

@@ -1,4 +1,4 @@
-// Fused tower-op kernels (queue rows 5-11, 13-14), replacing the
+// Fused tower-op kernels (queue rows 5-11, 13-16), replacing the
 // bn254_tpu/pallas_fused.py kernels named beside each one below.
 //
 // One thread per batch lane, 128-thread blocks, the ragged edge masked.
@@ -120,6 +120,32 @@ __global__ void k_g2_dbl_step(const int32_t* __restrict__ r_in, int32_t* __restr
   store3(c_out, B, lane, l.ell_0, l.ell_vw, l.ell_vv);
 }
 
+// pallas_fused.py _call_impl("fq2_mul"): kfq2_mul in its default lazy
+// spelling, two Montgomery reductions of 512-bit products (bn254.cuh
+// fq2_mul_lazy).  Bound by its bytes, 384 per lane, at one-op batches.
+__global__ void k_fq2_mul_fused(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                                int32_t* __restrict__ out, int B) {
+  int lane = lane_index();
+  if (lane >= B) return;
+  Fq2 x, y;
+  load(x, a, 0, B, lane);
+  load(y, b, 0, B, lane);
+  fq2_mul_lazy(x, x, y);
+  store(out, 0, B, lane, x);
+}
+
+// pallas_fused.py _call_impl("fq2_sqr"): kfq2_sqr, the eager complex
+// square (two CIOS products), as row 4's kernel computes it.
+__global__ void k_fq2_sqr_fused(const int32_t* __restrict__ a, int32_t* __restrict__ out,
+                                int B) {
+  int lane = lane_index();
+  if (lane >= B) return;
+  Fq2 x;
+  load(x, a, 0, B, lane);
+  fq2_sqr(x, x);
+  store(out, 0, B, lane, x);
+}
+
 // pallas_fused.py _call_impl("fq12_sqr")
 __global__ void k_fq12_sqr(const int32_t* __restrict__ a, int32_t* __restrict__ out, int B) {
   int lane = lane_index();
@@ -213,6 +239,15 @@ int bn254_g2_add_step(const int32_t* r, const int32_t* base, int32_t* r_out, int
 int bn254_g2_dbl_step(const int32_t* r, int32_t* r_out, int32_t* c_out, int B,
                       cudaStream_t stream) {
   BN254_LAUNCH(k_g2_dbl_step, r, r_out, c_out);
+}
+
+int bn254_fq2_mul_fused(const int32_t* a, const int32_t* b, int32_t* out, int B,
+                        cudaStream_t stream) {
+  BN254_LAUNCH(k_fq2_mul_fused, a, b, out);
+}
+
+int bn254_fq2_sqr_fused(const int32_t* a, int32_t* out, int B, cudaStream_t stream) {
+  BN254_LAUNCH(k_fq2_sqr_fused, a, out);
 }
 
 int bn254_fq12_sqr(const int32_t* a, int32_t* out, int B, cudaStream_t stream) {

@@ -6,7 +6,8 @@ reduced.  ``mul``/``sqr`` go to the Montgomery kernels (mont_kernels.py,
 rows 1-2) and ``pow_const`` on Fq to the whole-ladder ``fq_pow`` kernel
 (fused.py, row 5); add/sub/neg/select are plain tensor ops, as they are
 plain jnp ops in the JAX package.  The inverse is Fermat's a^(p-2), which
-maps 0 to 0 without branching.
+maps 0 to 0 without branching; the square root (p = 3 mod 4) is one
+power and two products, with Euler's criterion as its validity mask.
 """
 
 from __future__ import annotations
@@ -99,6 +100,19 @@ class FieldCtx:
     def inv(self, a):
         """Fermat inverse a^(p-2); maps 0 -> 0 (branchless)."""
         return self.pow_const(a, self.p - 2)
+
+    def sqrt(self, a):
+        """(root, ok): a^((p+1)/4), a root of a wherever ok; only for
+        p = 3 mod 4 (fp.rs:246-259).  One pow_const of (p-3)/4 (the fq_pow
+        kernel on Fq), then two products: a1 * a = a^((p+1)/4), and
+        a1 * a1a = a^((p-1)/2), whose value -1 marks a non-residue (Euler's
+        criterion); 0 is a residue with root 0."""
+        assert self.p % 4 == 3
+        a1 = self.pow_const(a, (self.p - 3) // 4)
+        a1a = self.mul(a1, a)
+        a0 = self.mul(a1, a1a)
+        is_nonres = self.eq(a0, self.const(self.p - 1, a.shape[-1], a.device))
+        return a1a, ~is_nonres
 
 
 FQ = FieldCtx(MK.FQ_MOD)

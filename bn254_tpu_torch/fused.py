@@ -1,10 +1,10 @@
 """Fused tower-op and group-law kernel wrappers — counterpart of
-bn254_tpu/pallas_fused.py (queue rows 5-11, 13-14 and 17-20).
+bn254_tpu/pallas_fused.py (queue rows 5-11, 13-20).
 
 Every wrapper takes packed contiguous ``[c, 16, B]`` int32 tensors (the
 ``pallas_fused.pack`` layout: the tower pytree's Fq leaves stacked in
 order).  For a CUDA tensor it launches its kernel from csrc/fused.cu (rows
-5-11, 13-14) or csrc/groups.cu (rows 17-20); for a CPU tensor it runs its
+5-11, 13-16) or csrc/groups.cu (rows 17-20); for a CPU tensor it runs its
 plain version below; any other device raises.
 
 The plain versions are the same formulas as bn254_tpu.tower and
@@ -112,6 +112,22 @@ def _xi(a):
     n0, n1 = _add(d, a).unbind(-3)
     a0, a1 = a.unbind(-3)
     return _s(_sub(n0, a1), _add(n1, a0), dim=-3)
+
+
+def _fq2_mul_lazy(a, b):
+    """Lazy-reduction Karatsuba (pallas_fused.kfq2_mul, its default
+    spelling): the three products stay as int64 columns, and each output
+    coefficient is reduced once, c0 = redc(m00 - m11) and c1 = redc(cross
+    - m00 - m11): 2 reductions where ``mont_kernels._fq2_mul`` takes 3.
+    The sums are reduced as in the JAX body, so the differences are
+    signed (|T| < 2q^2); ``limbs._redc(signed=True)`` offsets them."""
+    a0, a1 = a.unbind(-3)
+    b0, b1 = b.unbind(-3)
+    sa, sb = _add(torch.stack([a0, b0]), torch.stack([a1, b1])).unbind(0)
+    cols = L._product_columns(L._i64(torch.stack([a0, a1, sa], -3)),
+                              L._i64(torch.stack([b0, b1, sb], -3)))
+    m00, m11, cross = cols.unbind(-3)
+    return L._redc(torch.stack([m00 - m11, cross - m00 - m11], -3), _F, signed=True)
 
 
 def _mul6(a, b):
@@ -275,6 +291,18 @@ def miller_precompute_plain(q, p, kinds):
             r, c = _add_step(r, _s(qx, qy if kind == 1 else qy_neg))
         f = _fold(f, c, px, py)
     return f.reshape(12, N, batch), r.reshape(6, N, batch)
+
+
+def fq2_mul_lazy_plain(a, b):
+    counts.plain_calls["fq2_mul_fused"] += 1
+    return _fq2_mul_lazy(a, b)
+
+
+def fq2_sqr_fused_plain(a):
+    """Row 16's plain version: pallas_fused.kfq2_sqr is the eager complex
+    square, ``mont_kernels._fq2_sqr``."""
+    counts.plain_calls["fq2_sqr_fused"] += 1
+    return MK._fq2_sqr(a)
 
 
 def fq12_sqr_plain(a):
@@ -593,6 +621,31 @@ def miller_precompute(q, p, kinds):
     launch("miller_precompute", batch, _digits_on(kinds, p.device).data_ptr(),
            len(kinds), p.data_ptr(), q.data_ptr(), f.data_ptr(), r.data_ptr())
     return f, r
+
+
+def fq2_mul(a, b):
+    """Fq2 product [2, 16, B] x [2, 16, B] in the lazy-reduction spelling
+    (2 Montgomery reductions).  Kernel: csrc/fused.cu k_fq2_mul_fused,
+    replacing pallas_fused.py _call_impl("fq2_mul")."""
+    if not on_cuda(a):
+        return fq2_mul_lazy_plain(a, b)
+    batch = a.shape[-1]
+    check("fq2_mul_fused", batch, a.device, (a, (2,)), (b, (2,)))
+    out = torch.empty_like(a)
+    launch("fq2_mul_fused", batch, a.data_ptr(), b.data_ptr(), out.data_ptr())
+    return out
+
+
+def fq2_sqr(a):
+    """Complex Fq2 square [2, 16, B].  Kernel: csrc/fused.cu
+    k_fq2_sqr_fused, replacing pallas_fused.py _call_impl("fq2_sqr")."""
+    if not on_cuda(a):
+        return fq2_sqr_fused_plain(a)
+    batch = a.shape[-1]
+    check("fq2_sqr_fused", batch, a.device, (a, (2,)))
+    out = torch.empty_like(a)
+    launch("fq2_sqr_fused", batch, a.data_ptr(), out.data_ptr())
+    return out
 
 
 def fq12_sqr(a):

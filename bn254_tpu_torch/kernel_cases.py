@@ -12,6 +12,9 @@ lanes; MSM inputs are distinct affine points with planted duplicates, so
 the coincide patch runs (``msm_args``); GLV ladder inputs are real tables
 and digits from the port's decomposition, with edge scalars and planted
 tables whose adds meet their own point or its negative (``glv_args``).
+The lazy Fq2 product's inputs plant the extremes of its columns
+(``fq2_extremes``); the probes chain each op at its script's batch and
+chain length (``probe_args``).
 
 The bound (``bound_ms``) is the larger of two times: the Montgomery
 products the inputs need at ~350 integer instructions each (32-bit CIOS
@@ -34,6 +37,7 @@ from . import groups as G
 from . import limbs as L
 from . import mont_kernels as MK
 from . import msm as M
+from . import probes as PB
 from .convert import pack
 from .fields import FR
 from .pairing import _PRE_KINDS
@@ -65,11 +69,10 @@ class KernelCase:
 
 def residues(rng, coords: int, batch: int, device, mod: L.Mod = MK.FQ_MOD):
     """[coords, 16, B] int32 random residues mod `mod`, edge values first."""
-    a = rng.integers(0, 1 << 16, size=(coords, L.N_LIMBS, batch), dtype=np.int64)
-    a[:, -1] %= int(mod.q_np[-1])
+    a = PB.random_residues(rng, coords, batch, "cpu", mod)
     edges = mod.encode_batch([0, 1, mod.modulus - 1])[:, :batch]
-    a[:, :, :edges.shape[1]] = edges.astype(np.int64)
-    return torch.from_numpy(a.astype(np.int32)).to(device)
+    a[:, :, :edges.shape[1]] = torch.from_numpy(edges.astype(np.int32))
+    return a.to(device)
 
 
 def _fq(c):
@@ -200,6 +203,46 @@ def glv_args(rng, ncoords: int, batch: int, device):
     return ncoords, pts, digits
 
 
+def fq2_extremes(rng, batch: int, device):
+    """Fq2 operands (a, b) [2, 16, B] that drive the lazy product's column
+    differences to their extremes (tests/test_pallas_fused.py's
+    _fq12_adversarial, for one Fq2): on lanes 0-49 every pair (x, y) of
+    the values q - 1, 1 and 0 as stored residues and q - 1 and 1 as
+    canonical values (Montgomery-encoded) gives a = (x, y) with b = (y, x)
+    (the (q - 1, 1) sign patterns) and with b = (x, y); on the lanes up to
+    B/2 each coordinate is one of those values or random; the rest are
+    random residues."""
+    m = MK.FQ_MOD
+    a = residues(rng, 2, batch, device).cpu().numpy()
+    b = residues(rng, 2, batch, device).cpu().numpy()
+    vals = np.concatenate([np.stack([L.limbs_from_int(m.modulus - 1), L.limbs_from_int(1),
+                                     L.limbs_from_int(0)]).T,
+                           m.encode_batch([m.modulus - 1, 1])], axis=1).astype(np.int32)
+    nv = vals.shape[1]
+    pairs = [(x, y) for x in range(nv) for y in range(nv)]
+    lanes = [(x, y, swap) for x, y in pairs for swap in (True, False)]
+    for lane, (x, y, swap) in enumerate(lanes[:batch]):
+        a[0, :, lane], a[1, :, lane] = vals[:, x], vals[:, y]
+        b[0, :, lane], b[1, :, lane] = (vals[:, y], vals[:, x]) if swap else (vals[:, x], vals[:, y])
+    for lane in range(len(lanes), batch // 2):
+        for t in (a, b):
+            for c in range(2):
+                k = int(rng.integers(nv + 1))
+                if k < nv:
+                    t[c, :, lane] = vals[:, k]
+    return torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+
+
+def probe_args(name: str, variant: str, chain: int):
+    """(variant, a, b, chain): random residues as the probe entries make
+    them, with 0, 1 and q - 1 on the first lanes."""
+    coords = 1 if name == "chain_mont" else PB.OPS[variant][0]
+
+    def make(rng, batch, device):
+        return variant, residues(rng, coords, batch, device), residues(rng, coords, batch, device), chain
+    return make
+
+
 # ---------------------------------------------------------------------------
 # Work the inputs need: (Montgomery products, bytes read once and written once)
 # ---------------------------------------------------------------------------
@@ -260,6 +303,27 @@ def msm_work(ncoords, points, digits, nb, signed, lanes):
     return products, (_io(n, 2 * ncoords) + 4 * W * n + _io(W * lanes, 3 * ncoords))
 
 
+# The lazy Fq2 product (row 15) does 3 wide 256x256 products and 2
+# Montgomery reductions, where a CIOS product is one of each at about half
+# its instructions apiece: 2.5 products' work.  bench_tower.py's OPS (and
+# the probes' G Fq-products/s) count it as 3; its bound counts 2.5.
+FQ2_MUL_LAZY_PRODUCTS = 2.5
+
+
+def body_products(variant) -> float:
+    """Fq products' work of one op of a probe, as its bound counts it."""
+    if variant in PB.MONT_IMPLS:
+        return 1
+    return FQ2_MUL_LAZY_PRODUCTS if variant == "fq2_mul" else PB.OPS[variant][1]
+
+
+def probe_work(variant, a, b, chain):
+    """batch * chain * body_products; a square reads one operand."""
+    reads = 1 if variant in ("sqr", "fq2_sqr", "fq12_sqr", "cyclo_sqr") else 2
+    return (int(_lanes(a) * chain * body_products(variant)),
+            _io(_lanes(a), (reads + 1) * a.shape[0]))
+
+
 def bound_ms(products: int, nbytes: int):
     """(ms, "operations" or "bytes"): the least time the card could take."""
     ops_ms = products * INSTR_PER_PRODUCT / INT_OPS_PER_S * 1e3
@@ -272,6 +336,7 @@ _PF = "bn254_tpu/pallas_fused.py"
 _MK_CU = "bn254_tpu_torch/csrc/mont_kernels.cu"
 _FU_CU = "bn254_tpu_torch/csrc/fused.cu"
 _GR_CU = "bn254_tpu_torch/csrc/groups.cu"
+_PR_CU = "bn254_tpu_torch/csrc/probes.cu"
 
 CASES = (
     KernelCase("mont_mul", "mont_mul[fq]", _MK_CU, f"{_PK}:239", MK.mont_mul, L.mont_mul,
@@ -337,6 +402,20 @@ CASES = (
                  FU.glv_ladder_plain, lambda rng, b, d, nc=nc: glv_args(rng, nc, b, d),
                  glv_work)
       for nc in (1, 2)),
+    KernelCase("fq2_mul_fused", "fq2_mul_fused", _FU_CU, f"{_PF}:990", FU.fq2_mul,
+               FU.fq2_mul_lazy_plain, fq2_extremes,
+               lambda a, b: (int(FQ2_MUL_LAZY_PRODUCTS * _lanes(a)), _io(_lanes(a), 6))),
+    KernelCase("fq2_sqr_fused", "fq2_sqr_fused", _FU_CU, f"{_PF}:990", FU.fq2_sqr,
+               FU.fq2_sqr_fused_plain, lambda rng, b, d: fq2_extremes(rng, b, d)[:1],
+               lambda a: (2 * _lanes(a), _io(_lanes(a), 4))),
+    *(KernelCase("chain_mont", f"chain_mont[{impl}]", _PR_CU, "scripts/bench_mont.py:39",
+                 PB.chain_mont, PB.chain_mont_plain, probe_args("chain_mont", impl, 64),
+                 probe_work, batches=(32768, 1000))
+      for impl in PB.MONT_IMPLS),
+    *(KernelCase("chain_tower", f"chain_tower[{op}]", _PR_CU, "scripts/bench_tower.py:74",
+                 PB.chain_tower, PB.chain_tower_plain, probe_args("chain_tower", op, 32),
+                 probe_work, batches=(8192, 1000))
+      for op in PB.OPS),
 )
 
 

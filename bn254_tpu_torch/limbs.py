@@ -86,12 +86,14 @@ class Mod:
         self._dev = {}
 
     def consts(self, device):
-        """{"q", "notq"}: int64 [16, 1] tensors on `device` (cached)."""
+        """{"q", "notq"}: int64 [16, 1] tensors on `device`, and "q2x2":
+        2q^2 as int64 [32, 1] limbs (cached)."""
         key = torch.device(device)
         c = self._dev.get(key)
         if c is None:
             col = lambda a: torch.tensor(a.astype(np.int64), device=key)[:, None]
-            c = {"q": col(self.q_np), "notq": col(self.notq_np)}
+            c = {"q": col(self.q_np), "notq": col(self.notq_np),
+                 "q2x2": col(limbs_from_int(2 * self.modulus ** 2, 2 * N_LIMBS))}
             self._dev[key] = c
         return c
 
@@ -223,18 +225,48 @@ def _product_columns(a, b):
     return torch.nn.functional.pad(cols, (0, 0, 0, 1))
 
 
-def _mont(a, b, mod: Mod):
-    c = mod.consts(a.device)
-    t = _product_columns(_i64(a), _i64(b))
+def _signed_to_limbs(t, mod: Mod):
+    """Signed int64 columns [..., 32, B] of a value T in (-2q^2, 2q^2) ->
+    the 16-bit limbs of T + 2q^2, which is in (0, 4q^2) and has T's
+    residue mod q.  One ripple over the columns: ``& MASK`` and the
+    arithmetic ``>>`` split a negative column exactly (two's complement),
+    and the final carry is 0 because the value is non-negative."""
+    t = t + mod.consts(t.device)["q2x2"]
+    out, carry = [], 0
+    for k in range(2 * N_LIMBS):
+        v = t[..., k, :] + carry
+        out.append(v & MASK)
+        carry = v >> LIMB_BITS
+    return torch.stack(out, -2)
+
+
+def _redc(t, mod: Mod, signed: bool = False):
+    """Montgomery-reduce 32 int64 columns: T * 2^-256 mod q, canonical
+    [..., 16, B] int32.
+
+    Unsigned (the default): columns >= 0 with T < q * 2^256, as a
+    product's columns are; the loop adds m q per column, the upper half
+    ends with columns < 2^38 and a value < 2q < 2^256, and one
+    conditional subtraction finishes.  ``signed=True`` takes the signed
+    column differences of the lazy Fq2 product (|T| < 2q^2) and first
+    adds 2q^2 (``_signed_to_limbs``): T + 2q^2 < 4q^2 < q * 2^256 since
+    4q < 2^256, so the same loop and one subtraction give the canonical
+    value (the sum is below 4q^2 / 2^256 + q < 2q)."""
+    c = mod.consts(t.device)
+    if signed:
+        t = _signed_to_limbs(t, mod)
     q = c["q"]
     qinv = int(mod.qinv)
     for i in range(N_LIMBS):
         m = ((t[..., i, :] & MASK) * qinv) & MASK
         t[..., i:i + N_LIMBS, :] += m.unsqueeze(-2) * q
         t[..., i + 1, :] += t[..., i, :] >> LIMB_BITS
-    # columns of the upper half are < 2^38 and their value < 2q < 2^256
     r, _ = _carry(t[..., N_LIMBS:, :], 3)
     return _cond_sub(r, c).to(torch.int32)
+
+
+def _mont(a, b, mod: Mod):
+    return _redc(_product_columns(_i64(a), _i64(b)), mod)
 
 
 def mont_mul(a, b, mod: Mod):

@@ -1,24 +1,29 @@
-"""Drive the PyTorch + CUDA port's four main paths, the batched reduced
-pairing, the Pippenger MSM, the GLV scalar multiplication and the
-prepared-G2 Miller loop, once on one NVIDIA GPU and check them.
+"""Drive the PyTorch + CUDA port's six main paths, the batched reduced
+pairing, the Pippenger MSM, the GLV scalar multiplication, the
+prepared-G2 Miller loop, the throughput probes and the batched point
+decompression, once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure raises, so the exit code is not 0):
 
-1. Print the card (nvidia-smi name and power limit), build the seventeen
-   CUDA kernels from bn254_tpu_torch/csrc/ and print the build's seconds.
+1. Print the card (nvidia-smi name and power limit), build the twenty-one
+   CUDA kernels from bn254_tpu_torch/csrc/ and print the build's seconds
+   (ptxas's registers and stack of each entry stay in
+   bn254_tpu_torch/_build/build.log).
 2. Kernel vs plain version: each kernel on CUDA tensors made from a seed
    (bn254_tpu_torch/kernel_cases.py: field residues with 0, 1 and q - 1
    in the first lanes; real G1/G2 points with the group law's edge lanes;
    MSM digits over distinct affine points with planted duplicates; GLV
    tables and digits from the port's decomposition with edge scalars and
-   planted coincide and P + (-P) lanes) at B = 16384 and at a ragged
-   B = 1000 (n = 5000 for the MSM accumulate), against its plain PyTorch
-   version on the same tensors.  Tolerance 0: these are integers.  The
-   first variant of each kernel (Fq, NAF, G1), and fq12_cyc_pow's binary
-   digits (TPU row 12), timed at the main batch (CUDA events; the plain
-   version once), beside the bound its inputs give.
+   planted coincide and P + (-P) lanes; the lazy Fq2 product's column
+   extremes; the probes at their scripts' batches, 32768 and 8192) at
+   B = 16384 and at a ragged B = 1000 (n = 5000 for the MSM accumulate),
+   against its plain PyTorch version on the same tensors.  Tolerance 0:
+   these are integers.  The first variant of each kernel (Fq, NAF, G1,
+   mul, fq_mul), and fq12_cyc_pow's binary digits (TPU row 12), timed at
+   the main batch (CUDA events; the plain version once), beside the bound
+   its inputs give.
 3. Main path, with every launch and plain-call counter reset first:
    ``pairing`` on 16384 Jacobian pairs (z != 1) made by spec additions as
    bench.py makes them, 8 lanes checked against the spec pairing; the
@@ -58,10 +63,30 @@ Phases (any failure raises, so the exit code is not 0):
    ``miller_loop(precompute(qa), pa)`` on the pairing's 16384 pairs equal
    to the fused Miller loop limb for limb, all 87 coefficient triples of 4
    lanes equal to the spec's, and both calls timed.
+9. Throughput probes, with the counters reset first: ``probe_mont``
+   (B = 32768, chain 64) and ``probe_tower`` (B = 8192, chain 32, the
+   seven ops of bench_tower.py).  Every chain, and every op's one call
+   as a kernel of its own (mont_mul, mont_sqr, fq2_mul_fused,
+   fq2_sqr_fused, fq12_sqr, fq12_mul, fq12_cyc_sqr on the probe's
+   operands), equal to its plain version bit for bit; the Fq chains equal
+   to the spec's a * b^64 and a^(2^64) on every lane.  Prints each op's G
+   Fq-products/s, its ns per product beside the rate kernel_cases.bound_ms
+   assumes, and the op's time as a kernel of its own.
+10. Point decompression, with the counters reset first:
+   ``g1_from_compressed_batch`` on 16384 G1 and ``g2_from_compressed_batch``
+   (subgroup check on) on 16384 G2 compressed points built on the card as
+   the MSM's are and compressed on the host by the port's spec codec, with
+   planted invalid lanes (bad prefix, x = 0, x >= q, wrong lengths, an Fq2
+   quotient >= q, twist points outside the subgroup) and the golden hex
+   vectors.  Every valid lane round-trips to its point's affine limbs with
+   z = 1, every planted invalid lane is masked off, and 16 sampled lanes
+   of each group and the planted ones equal the host codec's result or
+   exception.  Then decompressions/s, split into host parse, square root,
+   y selection and (G2) subgroup check.
 
 Each main path must launch every kernel it uses and no plain version.
 The line before the last is the kernels' JSON record (launches summed
-over the four paths); the last line is {"ok": true, "device": {...}}.
+over the six paths); the last line is {"ok": true, "device": {...}}.
 Needs one CUDA card; fails without one.
 """
 
@@ -540,6 +565,216 @@ def phase_prepared_miller(dev, ps, qs, card):
     return check_launches("prepared-Miller", counts.PREPARED_MILLER_PATH, launches, plain)
 
 
+def phase_probes(card, records):
+    """The probe path once (probe_mont and probe_tower at their defaults),
+    with the counters reset around it; every chain and every one-op kernel
+    call against its plain version and the Fq chains against spec ints.
+    Returns its launches."""
+    from bn254_tpu_torch import counts
+    from bn254_tpu_torch import kernel_cases as KC
+    from bn254_tpu_torch import mont_kernels as MK
+    from bn254_tpu_torch import probes as PB
+    from bn254_tpu_torch.spec.constants import Q
+
+    counts.reset()
+    torch.cuda.synchronize()
+    mont, tower = PB.probe_mont(), PB.probe_tower()
+    torch.cuda.synchronize()
+    launches, plain = dict(counts.launches), dict(counts.plain_calls)
+
+    fq = MK.FQ_MOD
+    a, b, chain = mont["a"], mont["b"], mont["chain"]
+    av, bv = fq.decode_batch(a[0]), fq.decode_batch(b[0])
+    spec = {"mul": [x * pow(y, chain, Q) % Q for x, y in zip(av, bv)],
+            "sqr": [pow(x, 1 << chain, Q) for x in av]}
+    checks = [(f"chain_mont[{impl}]", rec["out"], PB.chain_mont_plain(impl, a, b, chain))
+              for impl, rec in mont["ops"].items()]
+    checks += [(f"chain_tower[{op}]", rec["out"],
+                PB.chain_tower_plain(op, rec["a"], rec["b"], tower["chain"]))
+               for op, rec in tower["ops"].items()]
+    # each op's one call as a kernel of its own, on the probe's operands
+    checks += [(f"{PB.MONT_ONE_OP[impl].kernel}[{impl}]", rec["one_op_out"],
+                PB.MONT_ONE_OP[impl].plain(a, b)) for impl, rec in mont["ops"].items()]
+    checks += [(f"{PB.TOWER_ONE_OP[op].kernel}[{op}]", rec["one_op_out"],
+                PB.TOWER_ONE_OP[op].plain(rec["a"], rec["b"]))
+               for op, rec in tower["ops"].items() if op in PB.TOWER_ONE_OP]
+    for label, got, want in checks:
+        err = KC.max_abs_err(got, want)
+        require(err == 0, f"{label} on the probe path differs from its plain version by {err}")
+        name = label.split("[")[0]
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+    for impl, rec in mont["ops"].items():
+        require(fq.decode_batch(rec["out"][0]) == spec[impl],
+                f"chain_mont[{impl}] differs from the spec's ints")
+    assumed_ns = KC.INSTR_PER_PRODUCT / KC.INT_OPS_PER_S * 1e9
+    print(f"probe path: {len(checks)} chains and one-op kernel calls = plain versions bit "
+          f"for bit; chain_mont = "
+          f"a * b^{chain} and a^(2^{chain}) on all {mont['batch']} lanes [{card}]", flush=True)
+    for name, res in (("chain_mont", mont), ("chain_tower", tower)):
+        for op, rec in res["ops"].items():
+            one = "none" if rec["one_op_ms"] is None else f"{rec['one_op_ms']:.4f} ms"
+            # per product of the work the bound counts (2.5 for the lazy fq2_mul)
+            ns = rec["ms"] * 1e6 / (res["batch"] * res["chain"] * KC.body_products(op))
+            print(f"probe {name}[{op}] B={res['batch']} chain={res['chain']}: "
+                  f"{rec['ms']:.4f} ms = {rec['g_products_per_s']:.2f} G Fq-products/s, "
+                  f"{ns:.5f} ns per product of the bound's work (the bound assumes "
+                  f"{assumed_ns:.5f}: {KC.INSTR_PER_PRODUCT} instr / INT_OPS_PER_S; measured = "
+                  f"{ns / assumed_ns * KC.INSTR_PER_PRODUCT:.0f} instr-equivalents); one op "
+                  f"as its own kernel {one} [{card}]", flush=True)
+    return check_launches("probe", counts.PROBE_PATH, launches, plain)
+
+
+CODEC_N = 16384        # one pairing batch's worth of each side
+
+
+def _codec_batch(K, dev, rng):
+    """16384 compressed points of msm_inputs' construction (the infinity
+    lanes 7, n/3, n - 1 get planted blobs), compressed on the host by the
+    port's spec codec, with planted invalid lanes and the golden vectors.
+    Returns (blobs, affine limbs (x, y), {lane: the host codec's result or
+    None} for the planted and 16 sampled lanes, the planted lanes, the
+    planted invalid lanes)."""
+    import golden
+    from bn254_tpu_torch import groups as G
+    from bn254_tpu_torch.errors import BNError
+    from bn254_tpu_torch.spec import codec as SC
+    from bn254_tpu_torch.spec import field as SF
+    from bn254_tpu_torch.spec import group as SG
+    from bn254_tpu_torch.spec.constants import B2, Q
+
+    nc = K.COORDS
+    pts, _, _, _ = msm_inputs(K, dev, CODEC_N, rng)
+    (x, y), inf = G.to_affine(K, pts)
+    xs, ys, inf = K.decode(x), K.decode(y), inf.tolist()
+    compress = SC.g1_to_compressed if nc == 1 else SC.g2_to_compressed
+    blobs = [None if i else compress((a, b)) for a, b, i in zip(xs, ys, inf)]
+    valid = blobs[20]
+    if nc == 1:
+        invalid = [bytes([0x05]) + valid[1:],                 # bad prefix, valid x
+                   bytes([0x02]) + b"\x00" * 32,              # x = 0: 3 is a non-residue
+                   bytes([0x03]) + Q.to_bytes(32, "big"),     # x = q
+                   bytes([0x02]) + b"\xff" * 32,              # x = 2^256 - 1
+                   valid[:32], valid + b"\x00"]               # wrong lengths
+        goldens = [bytes.fromhex(golden.G1_COMPRESSED_HEX)]
+    else:
+        off = []                                              # on the twist, off the subgroup
+        rnd = random.Random(SEED + 7)
+        while len(off) < 2:
+            tx = (rnd.randrange(Q), rnd.randrange(Q))
+            ty = SF.fq2_sqrt(SF.fq2_add(SF.fq2_mul(SF.fq2_sqr(tx), tx), B2))
+            if ty is not None:
+                off.append(SC.g2_to_compressed((tx, ty)))
+        invalid = [bytes([0x0C]) + valid[1:],                 # bad prefix, valid x
+                   bytes([0x0A]) + b"\x00" * 64,              # x = 0
+                   bytes([0x0B]) + (Q * Q).to_bytes(64, "big"),   # quotient = q
+                   bytes([0x0A]) + b"\xff" * 64,              # quotient > q
+                   valid[:64], valid + b"\x00", *off]
+        goldens = [bytes.fromhex(h) for h in (golden.G2_COMPRESSED_HEX,
+                                              golden.G2_COMPRESSED_HEX_REFLECT,
+                                              golden.G2_COMPRESSED_HEX_BADPREFIX)]
+    host = SC.g1_from_compressed if nc == 1 else SC.g2_from_compressed
+
+    def expect(blob):
+        try:
+            return host(blob)
+        except BNError:
+            return None
+
+    planted = [i for i, p in enumerate(inf) if p]
+    planted += [100 + 7 * j for j in range(len(invalid) + len(goldens) - len(planted))]
+    expected = {}
+    for lane, blob in zip(planted, invalid + goldens):
+        blobs[lane] = blob
+        expected[lane] = expect(blob)
+    require(None not in blobs, f"G{nc}: a lane at infinity has no planted blob")
+    bad = planted[:len(invalid)]
+    require(all(expected[lane] is None for lane in bad),
+            f"G{nc}: a planted invalid blob decodes on the host")
+    for lane in random.Random(SEED + 8).sample(range(CODEC_N), 16):
+        expected.setdefault(lane, expect(blobs[lane]))
+    return blobs, (x, y), expected, planted, bad
+
+
+def phase_codec(dev, card):
+    """The decompression path once per group, with the counters reset
+    around it, checked lane by lane; then decompressions/s and its split.
+    Returns its launches."""
+    import numpy as np
+    from bn254_tpu_torch import codec_device as CD
+    from bn254_tpu_torch import convert, counts
+    from bn254_tpu_torch import groups as G
+    from bn254_tpu_torch import tower as T
+    from bn254_tpu_torch.fields import FQ
+
+    rng = np.random.default_rng(SEED + 6)
+    t0 = time.perf_counter()
+    batches = {K: _codec_batch(K, dev, rng) for K in (G.G1, G.G2)}
+    print(f"codec inputs: {CODEC_N} G1 and {CODEC_N} G2 points built, made affine and "
+          f"compressed in {time.perf_counter() - t0:.1f} s", flush=True)
+    entry = {G.G1: CD.g1_from_compressed_batch, G.G2: CD.g2_from_compressed_batch}
+
+    counts.reset()
+    torch.cuda.synchronize()
+    out = {K: entry[K](blobs) for K, (blobs, *_) in batches.items()}
+    torch.cuda.synchronize()
+    launches, plain = dict(counts.launches), dict(counts.plain_calls)
+
+    for K, (blobs, (x, y), expected, planted, bad) in batches.items():
+        nc = K.COORDS
+        (px, py, pz), ok = out[K]
+        one = convert.pack(K.ones(CODEC_N, dev))
+        valid = torch.ones(CODEC_N, dtype=torch.bool, device=dev)
+        valid[planted] = False
+        same = lambda a, b: (convert.pack(a) == convert.pack(b)).flatten(0, -2).all(0)
+        rt = same(px, x) & same(py, y) & (convert.pack(pz) == one).flatten(0, -2).all(0)
+        require(bool((ok | ~valid).all()) and bool((rt | ~valid).all()),
+                f"G{nc}: {int((valid & ~(ok & rt)).sum())} valid lanes do not round-trip")
+        require(not bool(ok[bad].any()), f"G{nc}: a planted invalid lane is not masked off")
+        lanes = sorted(expected)
+        got = G.decode_points(K, convert.tree_map(lambda c: c[:, lanes], (px, py, pz)))
+        oks = ok[lanes].tolist()
+        z1 = 1 if nc == 1 else (1, 0)
+        for lane, g, o in zip(lanes, got, oks):
+            want = expected[lane]
+            require(o == (want is not None) and (want is None or g == (*want, z1)),
+                    f"G{nc} lane {lane} differs from the host codec")
+        print(f"codec G{nc}: {CODEC_N} lanes, {int(ok.sum())} valid, every valid lane "
+              f"round-trips to its affine limbs (z = 1); {len(bad)} planted invalid lanes masked off; "
+              f"{len(lanes)} sampled and planted lanes = host codec", flush=True)
+    launches = check_launches("codec", counts.CODEC_PATH, launches, plain)
+
+    for K, (blobs, *_) in batches.items():
+        nc = K.COORDS
+        entry[K](blobs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            entry[K](blobs)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) / 3 * 1e3
+        parse = CD.parse_g1_compressed if nc == 1 else CD.parse_g2_compressed
+        t0 = time.perf_counter()
+        for _ in range(3):
+            pre, xs, _ = parse(blobs, dev)
+        torch.cuda.synchronize()
+        parse_ms = (time.perf_counter() - t0) / 3 * 1e3
+        if nc == 1:
+            y, _ = FQ.sqrt(CD.g1_rhs(xs))
+            split = (cuda_ms(lambda: FQ.sqrt(CD.g1_rhs(xs)), 3),
+                     cuda_ms(lambda: CD.g1_select_y(pre, y), 3), None)
+        else:
+            y, _ = T.fq2_sqrt(CD.g2_rhs(xs))
+            pt = G.to_jacobian(G.G2, (xs, CD.g2_select_y(pre, y)))
+            split = (cuda_ms(lambda: T.fq2_sqrt(CD.g2_rhs(xs)), 3),
+                     cuda_ms(lambda: CD.g2_select_y(pre, y), 3),
+                     cuda_ms(lambda: CD.g2_in_subgroup(pt), 3))
+        sub = "" if split[2] is None else f", subgroup check {split[2]:.2f} ms"
+        print(f"codec G{nc} B={CODEC_N}: {total:.2f} ms = {CODEC_N / total * 1e3:.0f} "
+              f"decompressions/s; host parse {parse_ms:.2f} ms, sqrt {split[0]:.2f} ms, "
+              f"y selection {split[1]:.2f} ms{sub} [{card}]", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this script runs the port on the card only")
@@ -567,10 +802,13 @@ def main():
     phase_glv_timing(inputs, card, records)
     del inputs
     miller_launches = phase_prepared_miller(dev, ps, qs, card)
+    probe_launches = phase_probes(card, records)
+    codec_launches = phase_codec(dev, card)
     print(f"all phases: {time.perf_counter() - t0:.0f} s from the build's start", flush=True)
 
-    paths = (launches, msm_launches, glv_launches, miller_launches)
-    for name, rec in records.items():      # launches over the four main-path runs
+    paths = (launches, msm_launches, glv_launches, miller_launches, probe_launches,
+             codec_launches)
+    for name, rec in records.items():      # launches over the six main-path runs
         rec["launches"] = sum(p[name] for p in paths)
     require(sorted(records) == sorted(counts.KERNELS), "a kernel has no comparison record")
     print(card)

@@ -310,6 +310,9 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     for root, _, fs in os.walk(os.path.join(REPO, "bn254_tpu_torch")):
         files += [os.path.join(root, f) for f in fs if f.endswith(".py")]
     assert len(files) > 15
+    rel = {os.path.relpath(f, REPO) for f in files}
+    assert {"bn254_tpu_torch/probes.py", "bn254_tpu_torch/codec_device.py",
+            "bn254_tpu_torch/errors.py", "bn254_tpu_torch/spec/codec.py"} <= rel
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]
@@ -342,3 +345,41 @@ def test_spec_copy_equals_the_jax_package_spec():
     assert JSG.pairing(p, q) == PSG.pairing(p, q)
     f = tuple(tuple((rng.randrange(Q), rng.randrange(Q)) for _ in range(3)) for _ in range(2))
     assert JF.fq12_final_exponentiation(f) == PF.fq12_final_exponentiation(f)
+
+
+def test_codec_and_errors_copies_equal_the_jax_package():
+    """bn254_tpu_torch/spec/codec.py and errors.py are copies of the JAX
+    package's: the same public names, the same error classes and
+    hierarchy, and the same results or exception classes on valid and
+    invalid encodings."""
+    import bn254_tpu.errors as JE
+    import bn254_tpu.spec.codec as JSC
+    from bn254_tpu_torch import errors as PE
+    from bn254_tpu_torch.spec import codec as PSC
+
+    public = lambda m: {k for k in vars(m) if not k.startswith("_")}
+    assert public(JSC) == public(PSC)
+    classes = lambda m: {k: [c.__name__ for c in v.__mro__]
+                         for k, v in vars(m).items() if isinstance(v, type)}
+    assert classes(JE) == classes(PE) and len(classes(PE)) == 12
+
+    def run(codec, errors, fn, b):
+        try:
+            return getattr(codec, fn)(b)
+        except errors.BNError as e:
+            return type(e).__name__
+    p, q = SG.to_affine(_g1(5), OPS1), SG.to_affine(_g2(7), OPS2)
+    g1, g2 = JSC.g1_to_compressed(p), JSC.g2_to_compressed(q)
+    assert g1 == PSC.g1_to_compressed(p) and g2 == PSC.g2_to_compressed(q)
+    cases = [("g1_from_compressed", b) for b in
+             (g1, bytes([5]) + g1[1:], bytes([2]) + bytes(32), bytes([2]) + Q.to_bytes(32, "big"),
+              g1[:32], bytes.fromhex(golden.G1_COMPRESSED_HEX))]
+    cases += [("g2_from_compressed", b) for b in
+              (g2, bytes([12]) + g2[1:], bytes([10]) + (Q * Q).to_bytes(64, "big"), g2[:64],
+               bytes.fromhex(golden.G2_COMPRESSED_HEX))]
+    cases += [("fq_from_slice", Q.to_bytes(32, "big")), ("fr_from_slice", bytes(31)),
+              ("fq2_from_slice", bytes(63)), ("fr_interpret", bytes(range(64)))]
+    outs = [run(JSC, JE, fn, b) for fn, b in cases]
+    assert outs == [run(PSC, PE, fn, b) for fn, b in cases]
+    assert {"InvalidEncoding", "NotMemberCurveError", "NotMemberFieldError",
+            "InvalidSliceLength", "InvalidU512Encoding"} <= set(o for o in outs if isinstance(o, str))
