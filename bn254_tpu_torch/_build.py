@@ -55,7 +55,7 @@ _SIGS = {
     "fq12_cyc_pow": "pipp",      # digits, n, a, out
     "point_add": "ippp",         # ncoords, p, q, out
     "point_double": "ipp",       # ncoords, p, out
-    "msm_accumulate": "ippppiiii",  # ncoords, points, digits, buckets, out, n, W, nb, signed
+    "msm_accumulate": "ipppppiiii",  # ncoords, words, digits, offsets, order, buckets, n, W, nb, signed
     "fq12_sqr": "pp",            # a, out
     "g2_dbl_step": "ppp",        # r, r_out, coeff_out
     "glv_ladder": "ipipp",       # ncoords, digits, nsteps, pts, out
@@ -63,6 +63,8 @@ _SIGS = {
     "fq2_sqr_fused": "pp",       # a, out
     "chain_mont": "ipppi",       # impl, a, b, out, chain
     "chain_tower": "ipppi",      # op, a, b, out, chain
+    "msm_bucket_sort": "pppiiii",   # digits, offsets, order, n, W, nb, signed
+    "msm_bucket_reduce": "ippii",   # ncoords, buckets, out, W, nb
 }
 assert tuple(_SIGS) == counts.KERNELS
 

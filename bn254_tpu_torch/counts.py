@@ -16,12 +16,14 @@ KERNELS = (
     "point_add", "point_double", "msm_accumulate",
     "fq12_sqr", "g2_dbl_step", "glv_ladder",
     "fq2_mul_fused", "fq2_sqr_fused", "chain_mont", "chain_tower",
+    "msm_bucket_sort", "msm_bucket_reduce",
 )
 
 # The kernels each main path launches (chip_smoke.py asserts every one).
 PAIRING_PATH = KERNELS[:11]
 MSM_PATH = ("mont_mul", "mont_sqr", "fq2_mul", "fq2_sqr", "fq_pow",   # to_affine
-            "point_add", "point_double", "msm_accumulate")
+            "point_add", "point_double",                          # Horner + lane fold
+            "msm_bucket_sort", "msm_accumulate", "msm_bucket_reduce")   # row 19
 GLV_PATH = ("mont_mul",                  # endo: beta x
             "point_add", "glv_ladder")   # p1 + p2, the ladder
 PREPARED_MILLER_PATH = ("fq2_mul",       # the Frobenius bases

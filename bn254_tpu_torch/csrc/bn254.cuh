@@ -103,6 +103,18 @@ __device__ __forceinline__ void store3(int32_t* base, int B, int lane, const Fq2
   store(base, 0, B, lane, a); store(base, 2, B, lane, b); store(base, 4, B, lane, c);
 }
 
+// An Fq as 8 packed 32-bit words at a 16-byte aligned address: the MSM's
+// point-major copy in device memory, the Fq12 team's slots in shared memory
+__device__ __forceinline__ Fq fq_load_words(const uint32_t* p) {
+  const uint4 a = reinterpret_cast<const uint4*>(p)[0], b = reinterpret_cast<const uint4*>(p)[1];
+  return Fq{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
+}
+
+__device__ __forceinline__ void fq_store_words(uint32_t* p, const Fq& v) {
+  reinterpret_cast<uint4*>(p)[0] = make_uint4(v.v[0], v.v[1], v.v[2], v.v[3]);
+  reinterpret_cast<uint4*>(p)[1] = make_uint4(v.v[4], v.v[5], v.v[6], v.v[7]);
+}
+
 // ---------------------------------------------------------------------------
 // Fq (any modulus < 2^254 for mont_mul; the tower uses Fq's)
 // ---------------------------------------------------------------------------
@@ -333,7 +345,7 @@ __device__ __forceinline__ void redc_wide(Fq& r, uint32_t t[16], const Modulus& 
   r = out;
 }
 
-static __device__ __noinline__ void fq2_mul_lazy(Fq2& r, const Fq2& a, const Fq2& b) {
+__device__ __forceinline__ Fq2 fq2_mul_lazy_inl(const Fq2& a, const Fq2& b) {
   const Modulus m = fq_modulus();
   const uint32_t q_squared[16] = {BN254_FQ_Q_SQUARED};
   uint32_t sa[8], sb[8], m00[16], m11[16], cross[16], t[16];
@@ -354,8 +366,14 @@ static __device__ __noinline__ void fq2_mul_lazy(Fq2& r, const Fq2& a, const Fq2
   wide_sub(cross, cross, m11);  // a0 b1 + a1 b0
   wide_add(t, m00, q_squared);
   wide_sub(t, t, m11);          // a0 b0 - a1 b1 + q^2
+  Fq2 r;
   redc_wide(r.c0, t, m);
   redc_wide(r.c1, cross, m);
+  return r;
+}
+
+static __device__ __noinline__ void fq2_mul_lazy(Fq2& r, const Fq2& a, const Fq2& b) {
+  r = fq2_mul_lazy_inl(a, b);
 }
 
 // scale by an Fq element (fq2.rs:48)
@@ -367,16 +385,19 @@ static __device__ __noinline__ void fq2_scale(Fq2& r, const Fq2& a, const Fq& k)
 }
 
 // a * (9 + i) = (9 a0 - a1, 9 a1 + a0), 9x = 8x + x
-static __device__ __noinline__ void fq2_mul_by_xi(Fq2& r, const Fq2& a) {
-  Fq2 d;
+__device__ __forceinline__ Fq2 fq2_mul_by_xi_inl(const Fq2& a) {
+  Fq2 d, r;
   fq2_add(d, a, a);
   fq2_add(d, d, d);
   fq2_add(d, d, d);
   fq2_add(d, d, a);
-  Fq c0, c1;
-  fq_sub(c0, d.c0, a.c1);
-  fq_add(c1, d.c1, a.c0);
-  r.c0 = c0; r.c1 = c1;
+  fq_sub(r.c0, d.c0, a.c1);
+  fq_add(r.c1, d.c1, a.c0);
+  return r;
+}
+
+static __device__ __noinline__ void fq2_mul_by_xi(Fq2& r, const Fq2& a) {
+  r = fq2_mul_by_xi_inl(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -388,9 +409,6 @@ static __device__ __noinline__ void fq6_add(Fq6& r, const Fq6& a, const Fq6& b) 
 }
 static __device__ __noinline__ void fq6_sub(Fq6& r, const Fq6& a, const Fq6& b) {
   fq2_sub(r.c0, a.c0, b.c0); fq2_sub(r.c1, a.c1, b.c1); fq2_sub(r.c2, a.c2, b.c2);
-}
-static __device__ __noinline__ void fq6_neg(Fq6& r, const Fq6& a) {
-  fq2_neg(r.c0, a.c0); fq2_neg(r.c1, a.c1); fq2_neg(r.c2, a.c2);
 }
 
 // v * (c0 + c1 v + c2 v^2) = xi c2 + c0 v + c1 v^2 (fq6.rs:109-115)
@@ -436,11 +454,6 @@ static __device__ __noinline__ void fq6_mul(Fq6& r, const Fq6& a, const Fq6& b) 
 // ---------------------------------------------------------------------------
 // Fq12 = Fq6[w]/(w^2 - v)
 // ---------------------------------------------------------------------------
-
-static __device__ __noinline__ void fq12_conj(Fq12& r, const Fq12& a) {
-  r.c0 = a.c0;
-  fq6_neg(r.c1, a.c1);
-}
 
 // Karatsuba over Fq6 (fq12.rs:316-328)
 static __device__ __noinline__ void fq12_mul(Fq12& r, const Fq12& a, const Fq12& b) {

@@ -1,27 +1,38 @@
 // Fused tower-op kernels (queue rows 5-11, 13-16), replacing the
 // bn254_tpu/pallas_fused.py kernels named beside each one below.
 //
-// One thread per batch lane, 128-thread blocks, the ragged edge masked.
-// A kernel reads its operands once, runs the whole formula (or the whole
-// ladder / Miller schedule) with every intermediate on the thread's
-// registers and stack, and writes its result once, as the TPU kernels
-// keep theirs in VMEM.  Step kinds and ladder digits come as a small int32
-// device array that every lane reads in the same order, so a warp never
-// diverges on them.
+// One thread per batch lane, 128-thread blocks, the ragged edge masked,
+// except k_fq12_cyc_pow (below).  A kernel reads its operands once, runs
+// the whole formula (or the whole ladder / Miller schedule) with every
+// intermediate on the thread's registers and stack, and writes its
+// result once, as the TPU kernels keep theirs in VMEM.  Step kinds and
+// ladder digits come as a small int32 device array that every lane reads
+// in the same order, so a warp never diverges on them.
 //
 // Bound: integer multiply-adds (an Fq12 product is 54 Montgomery
 // products, about 7,000 32x32->64 multiply-adds) and the local-memory
 // traffic of the tower state (f alone is 12 Fq = 96 words, past what the
 // register file gives one thread, and the __noinline__ tower functions
-// pass their arguments through the stack).  This first design keeps the
-// arithmetic simple and exact (eager reduction, CIOS in C) and relies on
-// L1 to hold the stack.  ptxas gives fq_pow 40 registers and no stack, but
-// the Fq12 kernels 138-236 registers and 1-3 KB stack frames, so only two
-// or three 128-thread blocks fit an SM: per Montgomery product the Miller
-// kernel runs 2-2.6x and the cyclotomic ladder about 3.4x slower than
-// fq_pow (H100 80GB HBM3, 700 W, two runs).  Occupancy and the stack
-// traffic are what the next kernel work should attack.
+// pass their arguments through the stack).  ptxas gives fq_pow 40
+// registers and no stack, but the one-thread Fq12 kernels 138-236
+// registers and 1-3 KB stack frames, so only two or three 128-thread
+// blocks fit an SM (H100 80GB HBM3, 700 W).
+//
+// k_fq12_cyc_pow (row 11, the final exponentiation's three z-ladders,
+// about 2,360 Montgomery products a lane) runs a team of six threads of
+// one warp per lane (fq12_team.cuh), five lanes to a warp, 20 lanes to a
+// 128-thread block.  res and a sit in shared memory (2,400 bytes a lane
+// with the product scratch, 48,000 a block); per digit the team computes
+// the cyclotomic square's 6 Fq2 products (one a thread), exchanges them,
+// and each thread writes one new coefficient; a nonzero digit adds the
+// Fq12 product's 18 (three a thread), with conj(a) read by negating a.c1.
+// At B = 16384 that is 98,304 threads.  Bound: the products; the team
+// adds the coefficient steps' adds and leaves 2 threads of 32 idle.
+// ptxas (sm_90a): 205 registers, no stack, so 8 warps on an SM; lower
+// register caps spill to the stack and run slower (regcap_sweep.py,
+// PERF.md).
 #include "bn254.cuh"
+#include "fq12_team.cuh"
 
 using namespace bn254;
 
@@ -199,22 +210,45 @@ __global__ void k_fq12_cyc_sqr(const int32_t* __restrict__ a, int32_t* __restric
 
 // pallas_fused.py _pow_call_impl("fq12_cyc_pow"): res = a; per digit a
 // cyclotomic square, then digit 1 multiplies by a, digit 2 by conj(a).
+// Thread k of team t of warp v holds coefficient k of lane 5 v + t of the
+// block; threads 30 and 31 of each warp, and teams past B, only keep the
+// warp's barriers.
+constexpr int kTeam = 6, kTeamsPerWarp = 5, kCycWarps = 4;
+constexpr int kCycLanes = kTeamsPerWarp * kCycWarps;   // lanes a block
+
+// No __launch_bounds__: it would make nvcc ignore -maxrregcount, which
+// regcap_sweep.py sets to time the kernel under register caps.
 __global__ void k_fq12_cyc_pow(const int32_t* __restrict__ digits, int n,
-                               const int32_t* __restrict__ a, int32_t* __restrict__ out,
-                               int B) {
-  int lane = lane_index();
-  if (lane >= B) return;
-  Fq12 base, conj, res;
-  load(base, a, B, lane);
-  fq12_conj(conj, base);
-  res = base;
-  for (int i = 0; i < n; ++i) {
-    fq12_cyclotomic_sqr(res, res);
-    int d = digits[i];
-    if (d == 1) fq12_mul(res, res, base);
-    else if (d == 2) fq12_mul(res, res, conj);
+                               const int32_t* __restrict__ a, int32_t* __restrict__ out, int B) {
+  __shared__ __align__(16) uint32_t s_lanes[kCycLanes * kTeamLaneWords];
+  const int warp = threadIdx.x / 32, team = (threadIdx.x % 32) / kTeam;
+  const int k = threadIdx.x % 32 - team * kTeam, slot = warp * kTeamsPerWarp + team;
+  const int lane = blockIdx.x * kCycLanes + slot;
+  const bool active = team < kTeamsPerWarp && lane < B;
+  uint32_t* res = s_lanes + (active ? slot : 0) * kTeamLaneWords;
+  uint32_t* base = res + 6 * kTeamSlot;
+  uint32_t* P = res + 12 * kTeamSlot;
+  if (active) {
+    Fq2 v;
+    load(v, a, 2 * k, B, lane);
+    st2_s(res, k, v);
+    st2_s(base, k, v);
   }
-  store(out, B, lane, res);
+  __syncwarp();
+  for (int i = 0; i < n; ++i) {
+    if (active) team_cyc_sqr_products(k, P, res);
+    __syncwarp();
+    if (active) st2_s(res, k, team_cyc_sqr_coeff(k, P, res));
+    __syncwarp();
+    const int d = digits[i];
+    if (d != 0) {
+      if (active) team_fq12_mul_products(k, P, res, base, d == 2);
+      __syncwarp();
+      if (active) st2_s(res, k, team_fq12_mul_coeff(P, k));
+      __syncwarp();
+    }
+  }
+  if (active) store(out, 2 * k, B, lane, ld2_s(res, k));
 }
 
 }  // namespace
@@ -270,7 +304,9 @@ int bn254_fq12_cyc_sqr(const int32_t* a, int32_t* out, int B, cudaStream_t strea
 
 int bn254_fq12_cyc_pow(const int32_t* digits, int n, const int32_t* a, int32_t* out, int B,
                        cudaStream_t stream) {
-  BN254_LAUNCH(k_fq12_cyc_pow, digits, n, a, out);
+  k_fq12_cyc_pow<<<(B + kCycLanes - 1) / kCycLanes, 32 * kCycWarps, 0, stream>>>(digits, n, a,
+                                                                                out, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -158,9 +158,10 @@ static __device__ __noinline__ void point_add(Jac<F>& r, const Jac<F>& p, const 
 
 // Mixed add of an affine q without the doubling branch
 // (k_point_madd_generic).  Returns coincide: that lane's r is wrong
-// (z3 = 0) and the caller must take affine_double(q) instead.
+// (z3 = 0) and the caller must take affine_double(q) instead.  Inlined
+// into the MSM accumulate's loop, so the bucket stays in registers.
 template <class F>
-static __device__ __noinline__ bool point_madd_generic(Jac<F>& r, const Jac<F>& p, const F& qx,
+__device__ __forceinline__ bool point_madd_generic(Jac<F>& r, const Jac<F>& p, const F& qx,
                                                       const F& qy) {
   const bool p_inf = f_is_zero(p.z);
   F z1s, u2, s2, h, rr, i, j, v, t;

@@ -541,20 +541,16 @@ def glv_ladder_plain(ncoords: int, pts, digits):
     return torch.stack(res).reshape(3 * ncoords, N, pts.shape[-1])
 
 
-def msm_accumulate_plain(ncoords: int, points, digits, nb: int, signed: bool = True,
-                         lanes: int = 1024):
-    """All windows at once: the batch axis is (window, lane), window-major.
-    Tile i feeds point i*lanes + lane to lane `lane` of every window; the
-    bucket gather and scatter are indexing (bucket 0, the discard bucket,
-    is written and cleared again), then each lane reduces its own buckets
-    by the running sum."""
-    counts.plain_calls["msm_accumulate"] += 1
-    A = _coord(ncoords)
+def _bucket_sums(A, pts, digits, nb: int, signed: bool, lanes: int):
+    """Every window's buckets, tile by tile in order: the batch axis is
+    (window, lane), window-major.  Tile i feeds point i*lanes + lane to
+    lane `lane` of every window; the bucket gather and scatter are
+    indexing (bucket 0, the discard bucket, is written and cleared again)
+    -> [nb, 3, (2,) 16, W * lanes]."""
     W, n = digits.shape
     m, wl = n // lanes, W * lanes
-    pts = points.view(2, *([2] if ncoords == 2 else []), N, n)
     buckets = torch.zeros((nb, 3) + tuple(pts.shape[1:-1]) + (wl,),
-                          dtype=torch.int32, device=points.device)
+                          dtype=torch.int32, device=pts.device)
     for i in range(m):
         d = digits[:, i * lanes:(i + 1) * lanes].reshape(wl)
         qx, qy = pts[..., i * lanes:(i + 1) * lanes].repeat(
@@ -572,13 +568,74 @@ def msm_accumulate_plain(ncoords: int, points, digits, nb: int, signed: bool = T
             new = tuple(A.select(coincide, a, b) for a, b in zip(dbl, new))
         buckets.scatter_(0, idx, torch.stack(new)[None])
         buckets[0] = 0
+    return buckets
+
+
+def _bucket_reduce(A, buckets):
+    """Each lane's running sum over its buckets b = nb-1 .. 1 -> its
+    window total (x, y, z).  buckets: [nb, 3, (2,) 16, W * lanes]."""
     zero = tuple(torch.zeros_like(buckets[0, 0]) for _ in range(3))
     acc = tot = zero
-    for b in range(nb - 1, 0, -1):
+    for b in range(buckets.shape[0] - 1, 0, -1):
         acc = _point_add(A, acc, buckets[b].unbind(0))
         tot = _point_add(A, tot, acc)
+    return tot
+
+
+def _totals(tot, ncoords: int, W: int, lanes: int):
+    """Window totals (x, y, z) over (window, lane) -> [W, 3c, 16, lanes]."""
     return (torch.stack(tot).reshape(3 * ncoords, N, W, lanes)
             .permute(2, 0, 1, 3).contiguous())
+
+
+def msm_accumulate_plain(ncoords: int, points, digits, nb: int, signed: bool = True,
+                         lanes: int = 1024):
+    """All windows at once: the buckets tile by tile in order, then each
+    lane reduces its own buckets by the running sum."""
+    counts.plain_calls["msm_accumulate"] += 1
+    A = _coord(ncoords)
+    pts = points.view(2, *([2] if ncoords == 2 else []), N, points.shape[-1])
+    buckets = _bucket_sums(A, pts, digits, nb, signed, lanes)
+    return _totals(_bucket_reduce(A, buckets), ncoords, digits.shape[0], lanes)
+
+
+def msm_bucket_sort_plain(digits, nb: int, signed: bool = True, lanes: int = 1024):
+    """Each (window, lane)'s tiles i (points i*lanes + lane) sorted by
+    bucket |d| (d if unsigned), stably, tiles with d = 0 dropped ->
+    (offsets int32 [W, nb, lanes], order int32 [W, n/lanes, lanes]).
+    offsets[w, b, lane] counts the lane's tiles with 1 <= |d| <= b, so
+    bucket b's run is order[w, offsets[b-1]:offsets[b], lane]; order is
+    -1 past the last run."""
+    counts.plain_calls["msm_bucket_sort"] += 1
+    W, n = digits.shape
+    key = digits.view(W, n // lanes, lanes).to(torch.int64)
+    key = key.abs() if signed else key
+    key = torch.where(key == 0, nb, key)             # d = 0 sorts last
+    sk, idx = torch.sort(key, dim=1, stable=True)
+    order = torch.where(sk == nb, -1, idx).to(torch.int32)
+    count = torch.zeros((W, nb + 1, lanes), dtype=torch.int64, device=digits.device)
+    count.scatter_add_(1, key, torch.ones_like(key))
+    offsets = count[:, :nb].cumsum(1).to(torch.int32)   # count[:, 0] is 0
+    return offsets, order
+
+
+def msm_bucket_reduce_plain(ncoords: int, buckets):
+    """The running-sum reduce of every (window, lane): buckets [W, nb-1,
+    3c, 16, lanes] (bucket b at b - 1) -> totals [W, 3c, 16, lanes]."""
+    counts.plain_calls["msm_bucket_reduce"] += 1
+    A = _coord(ncoords)
+    W, nb1, _, _, lanes = buckets.shape
+    stacked = (buckets.permute(1, 2, 3, 0, 4)
+               .reshape(nb1, 3, *([2] if ncoords == 2 else []), N, W * lanes))
+    stacked = torch.cat([torch.zeros_like(stacked[:1]), stacked])   # bucket 0
+    return _totals(_bucket_reduce(A, stacked), ncoords, W, lanes)
+
+
+def msm_point_words(points):
+    """Affine points [2c, 16, n] (16-bit limbs) -> the point-major copy
+    [n, 2c, 8] of 32-bit words (limb 2j in the low half of word j) that
+    the accumulate kernel gathers a point from."""
+    return (points[:, 0::2] | (points[:, 1::2] << 16)).permute(2, 0, 1).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -800,6 +857,81 @@ def glv_ladder(ncoords: int, pts, digits):
     return out
 
 
+def _msm_shape(name, digits, nb, lanes):
+    """(W, n) of int32 digits [W, n] that the three MSM kernels take."""
+    if digits.dtype != torch.int32 or digits.dim() != 2 or not digits.is_contiguous():
+        raise ValueError(f"{name}: digits must be a contiguous int32 [W, n] tensor, got "
+                         f"{digits.dtype} {tuple(digits.shape)}")
+    W, n = digits.shape
+    if lanes < 1 or n % lanes or nb < 2 or W * n >= 1 << 31 or W * nb * lanes >= 1 << 31:
+        raise ValueError(f"{name}: want lanes dividing n and nb >= 2, got n={n}, "
+                         f"lanes={lanes}, nb={nb}, W={W}")
+    return W, n
+
+
+def _want(name, t, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous {dtype} tensor of shape {tuple(shape)} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def msm_bucket_sort(digits, nb: int, signed: bool = True, lanes: int = 1024):
+    """Stable counting sort of each (window, lane)'s tiles by bucket ->
+    (offsets int32 [W, nb, lanes], order int32 [W, n/lanes, lanes]), as
+    ``msm_bucket_sort_plain`` spells out.  Kernel: csrc/groups.cu
+    k_msm_bucket_sort, serving pallas_fused.py _msm_acc_impl."""
+    if not on_cuda(digits):
+        return msm_bucket_sort_plain(digits, nb, signed, lanes)
+    W, n = _msm_shape("msm_bucket_sort", digits, nb, lanes)
+    lo, hi = (int(v) for v in torch.aminmax(digits))
+    if lo < (-(nb - 1) if signed else 0) or hi > nb - 1:
+        raise ValueError(f"msm_bucket_sort: digits in [{lo}, {hi}] do not fit "
+                         f"{nb} {'signed' if signed else 'unsigned'} buckets")
+    offsets = torch.empty((W, nb, lanes), dtype=torch.int32, device=digits.device)
+    order = torch.empty((W, n // lanes, lanes), dtype=torch.int32, device=digits.device)
+    launch("msm_bucket_sort", lanes, digits.data_ptr(), offsets.data_ptr(), order.data_ptr(),
+           n, W, nb, int(signed))
+    return offsets, order
+
+
+def _msm_buckets(ncoords: int, words, digits, offsets, order, nb: int, signed: bool,
+                 lanes: int):
+    """Every (window, bucket, lane)'s run added up in tile order ->
+    buckets [W, nb-1, 3c, 16, lanes].  Kernel: csrc/groups.cu
+    k_msm_accumulate (row 19's accumulation); no plain version of its own:
+    ``msm_accumulate_plain`` holds the three kernels together."""
+    W, n = _msm_shape("msm_accumulate", digits, nb, lanes)
+    dev = digits.device
+    _want("msm_accumulate", words, torch.int32, (n, 2 * ncoords, 8), dev)
+    _want("msm_accumulate", offsets, torch.int32, (W, nb, lanes), dev)
+    _want("msm_accumulate", order, torch.int32, (W, n // lanes, lanes), dev)
+    buckets = torch.empty((W, nb - 1, 3 * ncoords, N, lanes), dtype=torch.int32, device=dev)
+    launch("msm_accumulate", lanes, ncoords, words.data_ptr(), digits.data_ptr(),
+           offsets.data_ptr(), order.data_ptr(), buckets.data_ptr(), n, W, nb, int(signed))
+    return buckets
+
+
+def msm_bucket_reduce(ncoords: int, buckets):
+    """Running-sum reduce of buckets [W, nb-1, 3c, 16, lanes] -> window
+    totals [W, 3c, 16, lanes].  Kernel: csrc/groups.cu
+    k_msm_bucket_reduce, serving pallas_fused.py _msm_acc_impl."""
+    if not on_cuda(buckets):
+        return msm_bucket_reduce_plain(ncoords, buckets)
+    _coord(ncoords)
+    if buckets.dim() != 5:
+        raise ValueError(f"msm_bucket_reduce: want buckets [W, nb-1, 3c, 16, lanes], got "
+                         f"{tuple(buckets.shape)}")
+    W, nb1, _, _, lanes = buckets.shape
+    _want("msm_bucket_reduce", buckets, torch.int32, (W, nb1, 3 * ncoords, N, lanes),
+          buckets.device)
+    if nb1 < 1 or W * lanes >= 1 << 31:
+        raise ValueError(f"msm_bucket_reduce: no buckets in {tuple(buckets.shape)}")
+    out = torch.empty((W, 3 * ncoords, N, lanes), dtype=torch.int32, device=buckets.device)
+    launch("msm_bucket_reduce", lanes, ncoords, buckets.data_ptr(), out.data_ptr(), W, nb1 + 1)
+    return out
+
+
 def msm_accumulate(ncoords: int, points, digits, nb: int, signed: bool = True,
                    lanes: int = 1024):
     """Bucket-accumulate and reduce every window of a Pippenger MSM.
@@ -809,27 +941,18 @@ def msm_accumulate(ncoords: int, points, digits, nb: int, signed: bool = True,
     |d|, y negated for d < 0), else in [0, nb); bucket 0 discards.  Each
     of the `lanes` lanes is an independent Pippenger sub-problem over the
     points i with i % lanes == lane.  Returns the window totals
-    [W, 3c, 16, lanes].  Kernel: csrc/groups.cu k_msm_accumulate,
-    replacing pallas_fused.py _msm_acc_impl (msm_accumulate)."""
+    [W, 3c, 16, lanes].  On the card (pallas_fused.py _msm_acc_impl,
+    msm_accumulate): the bucket sort, the point-major copy
+    (``msm_point_words``), the accumulation (csrc/groups.cu
+    k_msm_accumulate) and the reduce, three kernels."""
     if not on_cuda(points):
         return msm_accumulate_plain(ncoords, points, digits, nb, signed, lanes)
     _coord(ncoords)
-    W, n = digits.shape
-    if lanes < 1 or n % lanes or nb < 2 or W * n >= 1 << 31:
-        raise ValueError(f"msm_accumulate: want lanes dividing n and nb >= 2, got "
-                         f"n={n}, lanes={lanes}, nb={nb}, W={W}")
+    W, n = _msm_shape("msm_accumulate", digits, nb, lanes)
     check("msm_accumulate", n, points.device, (points, (2 * ncoords,)))
-    if (digits.dtype != torch.int32 or digits.device != points.device
-            or not digits.is_contiguous()):
-        raise ValueError("msm_accumulate: digits must be a contiguous int32 tensor "
-                         "on the points' device")
-    lo, hi = (int(v) for v in torch.aminmax(digits))
-    if lo < (-(nb - 1) if signed else 0) or hi > nb - 1:
-        raise ValueError(f"msm_accumulate: digits in [{lo}, {hi}] do not fit "
-                         f"{nb} {'signed' if signed else 'unsigned'} buckets")
-    buckets = torch.zeros((W, nb - 1, 3 * ncoords, N, lanes), dtype=torch.int32,
-                          device=points.device)
-    out = torch.empty((W, 3 * ncoords, N, lanes), dtype=torch.int32, device=points.device)
-    launch("msm_accumulate", lanes, ncoords, points.data_ptr(), digits.data_ptr(),
-           buckets.data_ptr(), out.data_ptr(), n, W, nb, int(signed))
-    return out
+    if digits.device != points.device:
+        raise ValueError("msm_accumulate: digits must be on the points' device")
+    offsets, order = msm_bucket_sort(digits, nb, signed, lanes)
+    buckets = _msm_buckets(ncoords, msm_point_words(points), digits, offsets, order, nb,
+                           signed, lanes)
+    return msm_bucket_reduce(ncoords, buckets)

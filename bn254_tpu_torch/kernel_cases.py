@@ -9,7 +9,10 @@ through ``Mod.encode`` to 0, 1 and q - 1; lane 0 is all zeros, which is
 also what ``to_affine`` hands the Miller kernels for a point at infinity.
 Point inputs are real points (``point_batch``) with the group law's edge
 lanes; MSM inputs are distinct affine points with planted duplicates, so
-the coincide patch runs (``msm_args``); GLV ladder inputs are real tables
+the coincide patch runs, and a skewed variant with every lane of a window
+in one bucket (``msm_args``); the bucket sort takes their digits, signed
+and unsigned (``sort_args``), the bucket reduce their buckets
+(``reduce_args``); GLV ladder inputs are real tables
 and digits from the port's decomposition, with edge scalars and planted
 tables whose adds meet their own point or its negative (``glv_args``).
 The lazy Fq2 product's inputs plant the extremes of its columns
@@ -24,6 +27,7 @@ once and each output written once over its memory rate.
 
 from __future__ import annotations
 
+import functools
 import random
 from dataclasses import dataclass
 from typing import Callable
@@ -140,24 +144,40 @@ def msm_lanes(n: int) -> int:
     return 1024 if n % 1024 == 0 else n // 5
 
 
-def msm_args(rng, ncoords: int, n: int, device):
+@functools.lru_cache(maxsize=8)
+def _msm_points(ncoords: int, n: int, seed: int):
+    """n distinct affine spec points (chained additions of 8 random
+    multiples of the generator), the same for the same seed: the cases
+    that share msm_args' inputs build them once."""
+    ops, bases = _spec_bases(ncoords, random.Random(seed))
+    pts, p = [], bases[0]
+    for i in range(n):
+        p = SG.add(p, bases[i % 8], ops)
+        pts.append(SG.to_affine(p, ops))
+    return tuple(pts)
+
+
+def msm_args(rng, ncoords: int, n: int, device, skew: bool = False):
     """(ncoords, affine points [2c, 16, n], signed digits [W, n], nb, True,
     lanes) at the main path's window (c = MSM_FUSED_WINDOW).  The points
     are distinct (chained spec additions); about a tenth of the digits are
     0.  Lanes 0-7 of tile 1 repeat tile 0's points and digits, so each of
     their buckets meets its own point (the coincide patch); lanes 8-15 of
-    tile 1 hold the negated points with the same digits (P + (-P))."""
-    rnd = random.Random(int(rng.integers(1 << 62)))
-    ops, bases = _spec_bases(ncoords, rnd)
+    tile 1 hold the negated points with the same digits (P + (-P)).  With
+    skew, every digit of a window is the same (window 0 all 0, the others
+    one random bucket and sign each): one run a lane holds every tile of
+    the window, and the window's other buckets are empty."""
+    ops = _SPEC[ncoords][0]
+    pts = list(_msm_points(ncoords, n, int(rng.integers(1 << 62))))
     c = M.MSM_FUSED_WINDOW[ncoords]
     lanes, half = msm_lanes(n), 1 << (c - 1)
     W = (254 + 1 + c - 1) // c
-    pts, p = [], bases[0]
-    for i in range(n):
-        p = SG.add(p, bases[i % 8], ops)
-        pts.append(SG.to_affine(p, ops))
     digits = rng.integers(-(half - 1), half + 1, size=(W, n)).astype(np.int32)
     digits[rng.random((W, n)) < 0.1] = 0
+    if skew:
+        digits[:] = rng.integers(-(half - 1), half + 1, size=(W, 1))
+        digits[:, :] = np.where(digits == 0, half, digits)
+        digits[0] = 0
     for j in range(16):
         x, y = pts[j]
         pts[lanes + j] = (x, y) if j < 8 else (x, ops.neg(y))
@@ -165,6 +185,32 @@ def msm_args(rng, ncoords: int, n: int, device):
     K = _GROUP[ncoords]
     packed = pack((K.encode([x for x, _ in pts], device), K.encode([y for _, y in pts], device)))
     return (ncoords, packed, torch.from_numpy(digits).to(device), half + 1, True, lanes)
+
+
+def sort_args(ncoords: int, signed: bool, skew: bool = False):
+    """(digits, nb, signed, lanes) for the bucket sort: msm_args' digits,
+    or for unsigned buckets their base-2^c value d mod 2^c in [0, 2^c)."""
+    def make(rng, n, device):
+        _, _, digits, nb, _, lanes = msm_args(rng, ncoords, n, device, skew)
+        if signed:
+            return digits, nb, True, lanes
+        c = M.MSM_FUSED_WINDOW[ncoords]
+        return digits % (1 << c), 1 << c, False, lanes
+    return make
+
+
+def reduce_args(ncoords: int):
+    """(ncoords, buckets [W, nb-1, 3c, 16, lanes]): msm_args' buckets,
+    tile by tile in order (some of them empty: (0, 0, 0))."""
+    def make(rng, n, device):
+        _, points, digits, nb, signed, lanes = msm_args(rng, ncoords, n, device)
+        A = FU._coord(ncoords)
+        pts = points.view(2, *([2] if ncoords == 2 else []), L.N_LIMBS, n)
+        sums = FU._bucket_sums(A, pts, digits, nb, signed, lanes)[1:]
+        W = digits.shape[0]
+        return ncoords, (sums.reshape(nb - 1, 3 * ncoords, L.N_LIMBS, W, lanes)
+                         .permute(3, 0, 1, 2, 4).contiguous())
+    return make
 
 
 # glv_args' edge scalars by lane; point_batch puts finite points there
@@ -262,6 +308,15 @@ _ADD = {1: 16, 2: 43}          # unified add, generic formula (no double)
 _DBL = {1: 7, 2: 16}
 _MADD = {1: 11, 2: 30}
 
+# The lazy Fq2 product (row 15) does 3 wide 256x256 products and 2
+# Montgomery reductions, where a CIOS product is one of each at about half
+# its instructions apiece: 2.5 products' work.  bench_tower.py's OPS (and
+# the probes' G Fq-products/s) count it as 3; its bound counts 2.5.
+FQ2_MUL_LAZY_PRODUCTS = 2.5
+# Fq2 products of the cyclotomic ladder (csrc/fq12_team.cuh, all lazy): 6
+# a Granger-Scott square, 18 an Fq12 product
+_CYC_SQR_FQ2, _FQ12_MUL_FQ2 = 6, 18
+
 
 def _w_mont(a, b, mod):
     return _lanes(a), _io(_lanes(a), 3)
@@ -285,7 +340,8 @@ def _w_miller(q, p, kinds):
 
 def _w_cyc_pow(a, digits):
     d = np.asarray(digits).ravel()
-    return _lanes(a) * int(18 * len(d) + 54 * (d != 0).sum()), _io(_lanes(a), 24)
+    fq2 = _CYC_SQR_FQ2 * len(d) + _FQ12_MUL_FQ2 * int((d != 0).sum())
+    return int(_lanes(a) * fq2 * FQ2_MUL_LAZY_PRODUCTS), _io(_lanes(a), 24)
 
 
 def glv_work(ncoords, pts, digits):
@@ -303,11 +359,16 @@ def msm_work(ncoords, points, digits, nb, signed, lanes):
     return products, (_io(n, 2 * ncoords) + 4 * W * n + _io(W * lanes, 3 * ncoords))
 
 
-# The lazy Fq2 product (row 15) does 3 wide 256x256 products and 2
-# Montgomery reductions, where a CIOS product is one of each at about half
-# its instructions apiece: 2.5 products' work.  bench_tower.py's OPS (and
-# the probes' G Fq-products/s) count it as 3; its bound counts 2.5.
-FQ2_MUL_LAZY_PRODUCTS = 2.5
+def sort_work(digits, nb, signed, lanes):
+    """No products; the digits read, the offsets and the tile list written."""
+    W, n = digits.shape
+    return 0, 4 * W * n + 4 * W * nb * lanes + 4 * W * n
+
+
+def reduce_work(ncoords, buckets):
+    W, nb1, _, _, lanes = buckets.shape
+    return (W * lanes * nb1 * 2 * _ADD[ncoords],
+            _io(W * lanes, 3 * ncoords * (nb1 + 1)))
 
 
 def body_products(variant) -> float:
@@ -387,11 +448,11 @@ CASES = (
                  FU.point_double, FU.point_double_plain, _points_args(nc, False),
                  lambda ncoords, p: (_DBL[ncoords] * _lanes(p), _io(_lanes(p), 6 * ncoords)))
       for nc in (1, 2)),
-    *(KernelCase("msm_accumulate", f"msm_accumulate[g{nc}]", _GR_CU, f"{_PF}:1635",
-                 FU.msm_accumulate, FU.msm_accumulate_plain,
-                 lambda rng, b, d, nc=nc: msm_args(rng, nc, b, d), msm_work,
+    *(KernelCase("msm_accumulate", f"msm_accumulate[g{nc}{',skew' * skew}]", _GR_CU,
+                 f"{_PF}:1635", FU.msm_accumulate, FU.msm_accumulate_plain,
+                 lambda rng, b, d, nc=nc, skew=skew: msm_args(rng, nc, b, d, skew), msm_work,
                  batches=(16384, 5000))
-      for nc in (1, 2)),
+      for nc, skew in ((1, False), (2, False), (1, True))),
     KernelCase("fq12_sqr", "fq12_sqr", _FU_CU, f"{_PF}:1025", FU.fq12_sqr,
                FU.fq12_sqr_plain, _fq((12,)),
                lambda a: (_FQ12_SQR * _lanes(a), _io(_lanes(a), 24))),
@@ -416,6 +477,15 @@ CASES = (
                  PB.chain_tower, PB.chain_tower_plain, probe_args("chain_tower", op, 32),
                  probe_work, batches=(8192, 1000))
       for op in PB.OPS),
+    *(KernelCase("msm_bucket_sort", f"msm_bucket_sort[{label}]", _GR_CU, f"{_PF}:1635",
+                 FU.msm_bucket_sort, FU.msm_bucket_sort_plain, sort_args(1, signed, skew),
+                 sort_work, batches=(16384, 5000))
+      for label, signed, skew in (("signed", True, False), ("unsigned", False, False),
+                                  ("skew", True, True))),
+    *(KernelCase("msm_bucket_reduce", f"msm_bucket_reduce[g{nc}]", _GR_CU, f"{_PF}:1635",
+                 FU.msm_bucket_reduce, FU.msm_bucket_reduce_plain, reduce_args(nc),
+                 reduce_work, batches=(16384, 5000))
+      for nc in (1, 2)),
 )
 
 

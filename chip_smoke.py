@@ -7,23 +7,26 @@ decompression, once on one NVIDIA GPU and check them.
 
 Phases (any failure raises, so the exit code is not 0):
 
-1. Print the card (nvidia-smi name and power limit), build the twenty-one
-   CUDA kernels from bn254_tpu_torch/csrc/ and print the build's seconds
-   (ptxas's registers and stack of each entry stay in
+1. Print the card (nvidia-smi name and power limit), build the
+   twenty-three CUDA kernels from bn254_tpu_torch/csrc/ and print the
+   build's seconds and ptxas's registers and stack of the MSM kernels and
+   the cyclotomic ladder (every entry's stay in
    bn254_tpu_torch/_build/build.log).
 2. Kernel vs plain version: each kernel on CUDA tensors made from a seed
    (bn254_tpu_torch/kernel_cases.py: field residues with 0, 1 and q - 1
    in the first lanes; real G1/G2 points with the group law's edge lanes;
-   MSM digits over distinct affine points with planted duplicates; GLV
+   MSM digits over distinct affine points with planted duplicates, and a
+   skewed variant with every lane of a window in one bucket; the bucket
+   sort on signed, unsigned and skewed digits; the bucket reduce; GLV
    tables and digits from the port's decomposition with edge scalars and
    planted coincide and P + (-P) lanes; the lazy Fq2 product's column
    extremes; the probes at their scripts' batches, 32768 and 8192) at
-   B = 16384 and at a ragged B = 1000 (n = 5000 for the MSM accumulate),
+   B = 16384 and at a ragged B = 1000 (n = 5000 for the MSM kernels),
    against its plain PyTorch version on the same tensors.  Tolerance 0:
    these are integers.  The first variant of each kernel (Fq, NAF, G1,
-   mul, fq_mul), and fq12_cyc_pow's binary digits (TPU row 12), timed at
-   the main batch (CUDA events; the plain version once), beside the bound
-   its inputs give.
+   mul, fq_mul, signed), fq12_cyc_pow's binary digits (TPU row 12) and
+   the skewed MSM timed at the main batch (CUDA events; the plain version
+   once), beside the bound its inputs give.
 3. Main path, with every launch and plain-call counter reset first:
    ``pairing`` on 16384 Jacobian pairs (z != 1) made by spec additions as
    bench.py makes them, 8 lanes checked against the spec pairing; the
@@ -47,8 +50,14 @@ Phases (any failure raises, so the exit code is not 0):
    split into prepare (digits and affine conversion), accumulate and
    Horner + lane fold (CUDA events, mean of 3 after a warm-up).  On the
    same prepared inputs (all 1024 point tiles a lane for G1, 64 for G2)
-   the accumulate kernel must equal its plain version bit for bit; the
-   kernels line takes row 19's times and bound from the G1 2^20 inputs.
+   the accumulate (row 19: the bucket sort, the point-major copy, the
+   accumulation and the reduce) must equal its plain version bit for bit,
+   and so must the sort and the reduce on their own; each of the four
+   steps is timed, and the kernels line takes the times and bounds of row
+   19 and of the sort and the reduce from the G1 2^20 inputs.  Then the
+   G1 accumulate is timed on its worst case at that size: every nonzero
+   digit of a window in one bucket (phase 2 holds that case against its
+   plain version at n = 16384).
 7. GLV path, with the counters reset first: ``glv.scalar_mul_glv`` over
    G1 and G2 at B = 32768 on msm_inputs' points and scalars (infinity
    points, k = 0, 1, r - 1, lambda, r - lambda planted), every lane
@@ -103,6 +112,8 @@ N_MAIN = 16384
 N_RAGGED = 1000
 SEED = 7
 ROW_12 = "fq12_cyc_pow[binary]"     # TPU row 12: row 11's kernel on binary digits
+TIMED = (ROW_12, "msm_accumulate[g1,skew]")   # timed beside each kernel's first variant
+PTXAS = ("k_msm_bucket_sort", "k_msm_accumulate", "k_msm_bucket_reduce", "k_fq12_cyc_pow")
 
 
 def require(ok, what: str):
@@ -115,6 +126,27 @@ def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def ptxas_lines(log: str, kernels):
+    """ptxas's registers and stack of each entry whose name holds one of
+    `kernels`, from nvcc's -Xptxas -v log (G1/G2 by the template's Fq/Fq2)."""
+    out, entry, stack = [], None, {}
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Function properties for" in line:
+            entry = line.split("for ")[-1].strip()
+        elif "bytes stack frame" in line and entry:
+            stack[entry] = line.split()[0]
+        elif "Used" in line and "registers" in line and entry:
+            name = next((k for k in kernels if k in entry), None)
+            if name:
+                field = "[Fq2]" if "Fq2" in entry else ("[Fq]" if "Fq" in entry else "")
+                regs = line.split("Used")[1].split("registers")[0].strip()
+                out.append(f"ptxas {name}{field}: {regs} registers, "
+                           f"{stack.get(entry, '?')} bytes stack")
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -182,8 +214,8 @@ def phase_kernels(dev):
         line = (f"kernel {case.label:22s} B={'/'.join(map(str, case.batches))}: "
                 f"max_abs_err {err}")
         rec = records.get(case.name)
-        # time the first variant (Fq, NAF, G1) at the main batch, and row 12
-        if rec is None or case.label == ROW_12:
+        # time the first variant (Fq, NAF, G1, signed), row 12 and the skew
+        if rec is None or case.label in TIMED:
             args = case.make_args(np.random.default_rng(SEED), main_b, dev)
             ms = cuda_ms(lambda: case.kernel(*args), 10)
             _, plain_ms = cuda_once(lambda: case.plain(*args))
@@ -385,38 +417,69 @@ def phase_msm(dev):
 
 
 def phase_msm_timing(inputs, card):
-    """ms per MSM, points/s, the split into its three steps; and the
-    accumulate kernel on the path's own inputs against its plain version
-    (tolerance 0), timed beside its bound.  Returns {ncoords: record}."""
+    """ms per MSM, points/s, the split into its three steps and of the
+    accumulate into its four; the accumulate, the bucket sort and the
+    bucket reduce on the path's own inputs against their plain versions
+    (tolerance 0), timed beside their bounds.  Returns {ncoords: {kernel
+    name: record}}."""
     from bn254_tpu_torch import fused as FU
     from bn254_tpu_torch import kernel_cases as KC
     from bn254_tpu_torch import msm as M
 
     records = {}
     for K, (pts, ks, _, _) in inputs.items():
-        n, c, nc = ks.shape[-1], M.MSM_FUSED_WINDOW[K.COORDS], K.COORDS
+        n, c, nc, lanes = ks.shape[-1], M.MSM_FUSED_WINDOW[K.COORDS], K.COORDS, M.LANES
         nb = (1 << (c - 1)) + 1
         total = cuda_ms(lambda: M.msm(K, pts, ks), 3)
         packed, dgs = M.prepare(K, pts, ks, c)
-        acc = lambda: FU.msm_accumulate(nc, packed, dgs, nb, lanes=M.LANES)
+        acc = lambda: FU.msm_accumulate(nc, packed, dgs, nb, lanes=lanes)
         totals = acc()
         split = (cuda_ms(lambda: M.prepare(K, pts, ks, c), 3), cuda_ms(acc, 3),
                  cuda_ms(lambda: M.combine(K, totals, c), 3))
-        bound, by = KC.bound_ms(*KC.msm_work(nc, packed, dgs, nb, True, M.LANES))
-        print(f"msm G{nc} n={n} c={c} lanes={M.LANES}: {total:.2f} ms = "
+        offsets, order = FU.msm_bucket_sort(dgs, nb, True, lanes)
+        words = FU.msm_point_words(packed)
+        buckets = FU._msm_buckets(nc, words, dgs, offsets, order, nb, True, lanes)
+        steps = (cuda_ms(lambda: FU.msm_bucket_sort(dgs, nb, True, lanes), 3),
+                 cuda_ms(lambda: FU.msm_point_words(packed), 3),
+                 cuda_ms(lambda: FU._msm_buckets(nc, words, dgs, offsets, order, nb, True,
+                                                 lanes), 3),
+                 cuda_ms(lambda: FU.msm_bucket_reduce(nc, buckets), 3))
+        bound, by = KC.bound_ms(*KC.msm_work(nc, packed, dgs, nb, True, lanes))
+        print(f"msm G{nc} n={n} c={c} lanes={lanes}: {total:.2f} ms = "
               f"{n / total * 1e3:.0f} points/s; prepare {split[0]:.2f} ms, accumulate "
               f"{split[1]:.2f} ms (bound {bound:.2f} ms, {by}), Horner + fold "
-              f"{split[2]:.2f} ms [{card}]", flush=True)
+              f"{split[2]:.2f} ms; accumulate = sort {steps[0]:.4f} + point words "
+              f"{steps[1]:.4f} + buckets {steps[2]:.4f} + reduce {steps[3]:.4f} ms [{card}]",
+              flush=True)
         want, plain_ms = cuda_once(lambda: FU.msm_accumulate_plain(nc, packed, dgs, nb,
-                                                                    lanes=M.LANES))
-        err = KC.max_abs_err(totals, want)
-        require(err == 0, f"msm_accumulate[g{nc}] on the MSM path's inputs (n={n}) "
-                          f"differs from its plain version by {err}")
-        print(f"kernel msm_accumulate[g{nc}] on the path's inputs n={n}: max_abs_err 0; "
-              f"kernel {split[1]:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-              f"({by}) [{card}]", flush=True)
-        records[nc] = {"max_abs_err": err, "ms": split[1], "plain_ms": plain_ms,
-                       "bound_ms": bound, "bound_by": by}
+                                                                    lanes=lanes))
+        checks = [("msm_accumulate", totals, want, plain_ms, split[1], (bound, by))]
+        want, plain_ms = cuda_once(lambda: FU.msm_bucket_sort_plain(dgs, nb, True, lanes))
+        checks.append(("msm_bucket_sort", (offsets, order), want, plain_ms, steps[0],
+                       KC.bound_ms(*KC.sort_work(dgs, nb, True, lanes))))
+        want, plain_ms = cuda_once(lambda: FU.msm_bucket_reduce_plain(nc, buckets))
+        checks.append(("msm_bucket_reduce", FU.msm_bucket_reduce(nc, buckets), want, plain_ms,
+                       steps[3], KC.bound_ms(*KC.reduce_work(nc, buckets))))
+        records[nc] = {}
+        for name, got, want, plain_ms, ms, (b_ms, b_by) in checks:
+            err = KC.max_abs_err(got, want)
+            require(err == 0, f"{name}[g{nc}] on the MSM path's inputs (n={n}) "
+                              f"differs from its plain version by {err}")
+            print(f"kernel {name}[g{nc}] on the path's inputs n={n}: max_abs_err 0; "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}) [{card}]", flush=True)
+            records[nc][name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": b_ms, "bound_by": b_by}
+        if nc == 1:     # the worst case at the path's size (held at n = 16384 in phase 2)
+            one = torch.where(dgs[:, :1] == 0, nb - 1, dgs[:, :1])
+            skew = torch.where(dgs == 0, 0, one)        # infinity points keep digit 0
+            s_off, s_ord = FU.msm_bucket_sort(skew, nb, True, lanes)
+            s_ms = (cuda_ms(lambda: FU.msm_accumulate(nc, packed, skew, nb, lanes=lanes), 3),
+                    cuda_ms(lambda: FU._msm_buckets(nc, words, skew, s_off, s_ord, nb, True,
+                                                    lanes), 3))
+            print(f"msm_accumulate[g1,skew] on the path's points n={n}, every nonzero digit of "
+                  f"a window in one bucket: {s_ms[0]:.4f} ms, buckets {s_ms[1]:.4f} ms "
+                  f"(random digits: {split[1]:.4f}, {steps[2]:.4f}) [{card}]", flush=True)
     return records
 
 
@@ -790,13 +853,16 @@ def main():
     t0 = time.perf_counter()
     _build.library()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
+    for line in ptxas_lines((_build.BUILD_DIR / "build.log").read_text(), PTXAS):
+        print(line, flush=True)
 
     records = phase_kernels(dev)
     ps, qs = spec_pairs(N_MAIN)
     launches = phase_main_path(dev, ps, qs)
     phase_timing(dev, ps, qs, card)
     msm_launches, inputs = phase_msm(dev)
-    records["msm_accumulate"].update(phase_msm_timing(inputs, card)[1])   # G1 2^20
+    for name, rec in phase_msm_timing(inputs, card)[1].items():          # G1 2^20
+        records[name].update(rec)
     del inputs
     glv_launches, inputs = phase_glv(dev)
     phase_glv_timing(inputs, card, records)

@@ -175,7 +175,8 @@ def test_affine_jacobian_curve_and_subgroup_checks():
 def test_kernel_case_inputs(label):
     """chip_smoke.py's inputs for rows 17-19 at a small size: the point
     edge lanes are what they claim, the planted MSM duplicates share their
-    digits, and the work count gives a positive bound."""
+    digits, the skewed MSM puts each window in one bucket, and the work
+    count gives a positive bound."""
     case = next(c for c in KC.CASES if c.label == label)
     size = 1000 if case.name == "msm_accumulate" else 16
     args = case.make_args(np.random.default_rng(1), size, "cpu")
@@ -191,6 +192,9 @@ def test_kernel_case_inputs(label):
         assert torch.equal(pts[:, :, lanes:lanes + 8], pts[:, :, :8])
         assert torch.equal(digits[:, lanes:lanes + 16], digits[:, :16])
         assert int(digits.abs().max()) <= nb - 1
+        if "skew" in label:              # every lane of a window in one bucket
+            assert not bool(digits[0].any())
+            assert all(len(set(row.tolist())) == 1 and int(row[0]) for row in digits[1:])
         return
     p = G.decode_points(K, convert.unpack_point(nc, args[1]))
     for pt in p:

@@ -240,3 +240,23 @@ def test_probe_entries_on_the_cpu(monkeypatch):
         PB.chain_tower("fq4_mul", mont["a"], mont["b"], 2)
     with pytest.raises(ValueError):
         PB.chain_mont("mul", mont["a"], mont["b"][:, :, :4].contiguous(), 2)
+
+
+def test_regcap_sweep_reads_the_entry_usage_and_needs_the_card(monkeypatch):
+    """regcap_sweep: the registers and stack of the case's entry (not of
+    another entry's or a device function's), from nvcc's -Xptxas -v log;
+    without a card it exits 1 before building anything."""
+    from bn254_tpu_torch import regcap_sweep as RS
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN4k_fq12_mulEv' for 'sm_90a'",
+        "    2496 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 220 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN14k_fq12_cyc_powEPKi' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN14k_fq12_cyc_powEPKi",
+        "    184 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 0 barriers, 48000 bytes smem",
+    ])
+    assert RS._entry_usage(log, "k_fq12_cyc_pow") == "128 registers, 184 bytes stack"
+    assert RS._entry_usage(log, "k_msm_accumulate") == "not in the build log"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert RS.main([]) == 1

@@ -16,6 +16,7 @@ from bn254_tpu.spec import field as SF
 from bn254_tpu.spec.constants import Q, Z
 from bn254_tpu_torch import convert
 from bn254_tpu_torch import fused as FU
+from bn254_tpu_torch import mont_kernels as MK
 from bn254_tpu_torch import tower as T
 import golden
 
@@ -209,6 +210,20 @@ def test_naf_and_binary_digit_schedules():
     assert int((FU.BINARY_Z != 0).sum()) == 27 and int((FU.NAF_Z != 0).sum()) == 23
 
 
+@pytest.mark.parametrize("label", ["fq12_cyc_pow[naf]", "fq12_cyc_pow[binary]"])
+def test_cyc_pow_bound_counts_lazy_fq2_products(label):
+    """Rows 11-12's bound counts the team's Fq2 products, all lazy, at
+    2.5 Montgomery products' work each: 6 a cyclotomic square per digit,
+    18 an Fq12 product per nonzero digit; 24 Fq of bytes a lane."""
+    from bn254_tpu_torch import kernel_cases as KC
+    case = next(c for c in KC.CASES if c.label == label)
+    a, digits = case.make_args(np.random.default_rng(SEED), 10, "cpu")
+    products, nbytes = case.work(a, digits)
+    d = np.asarray(digits).ravel()
+    assert products == 10 * (15 * len(d) + 45 * int((d != 0).sum()))
+    assert nbytes == 10 * 24 * 64
+
+
 def test_final_exponentiation_vs_jax():
     rng = random.Random(SEED + 8)
     av = [_fq12(rng) for _ in range(3)]
@@ -216,3 +231,92 @@ def test_final_exponentiation_vs_jax():
     got = T.fq12_final_exponentiation(_port(a_np))
     assert_same(got, jax.jit(JT.fq12_final_exponentiation)(a_np))
     assert T.fq12_decode(got) == [SF.fq12_final_exponentiation(x) for x in av]
+
+
+# The team spelling of row 11 (csrc/fq12_team.cuh): six threads per lane,
+# thread k computing a sixth of an op's Fq2 products, then output
+# coefficient k from the exchanged products.  An Fq12 is 6 Fq2 here,
+# (c0.c0, c0.c1, c0.c2, c1.c0, c1.c1, c1.c2).
+
+def _team_half(s, m, c, conj):
+    lo, hi = s[c], s[3 + c]
+    if conj:
+        hi = FU._neg(hi)
+    return lo if m == 0 else hi if m == 1 else FU._add(lo, hi)
+
+
+def _team_operand(s, m, k, conj):
+    if k < 3:
+        return _team_half(s, m, k, conj)
+    return FU._add(_team_half(s, m, 1 if k == 3 else 0, conj),
+                   _team_half(s, m, 1 if k == 4 else 2, conj))
+
+
+def _team_fq6_coeff(p, i):
+    if i == 0:
+        return FU._add(FU._xi(FU._sub(FU._sub(p[3], p[1]), p[2])), p[0])
+    if i == 1:
+        return FU._add(FU._sub(FU._sub(p[4], p[0]), p[1]), FU._xi(p[2]))
+    return FU._sub(FU._add(FU._sub(p[5], p[0]), p[1]), p[2])
+
+
+def team_fq12_mul(a, b, conj=False):
+    """18 Fq2 products (thread k: product k of each Fq6 product m), then
+    coefficient j of c0 = v R1 + R0, c1 = R2 - R0 - R1."""
+    s, t = a.view(6, 2, 16, -1), b.view(6, 2, 16, -1)
+    P = [[MK._fq2_mul(_team_operand(s, m, k, False), _team_operand(t, m, k, conj))
+          for k in range(6)] for m in range(3)]
+    out = []
+    for j in range(6):
+        if j < 3:
+            r1 = _team_fq6_coeff(P[1], 2 if j == 0 else j - 1)
+            out.append(FU._add(_team_fq6_coeff(P[0], j), FU._xi(r1) if j == 0 else r1))
+        else:
+            i = j - 3
+            out.append(FU._sub(FU._sub(_team_fq6_coeff(P[2], i), _team_fq6_coeff(P[0], i)),
+                               _team_fq6_coeff(P[1], i)))
+    return torch.stack(out).reshape(12, 16, -1)
+
+
+def team_cyc_sqr(a):
+    """6 Fq2 products (thread k: pair k % 3, u v or (u + v)(xi v + u)),
+    then cyc_tri per coefficient."""
+    s = a.view(6, 2, 16, -1)
+    pairs = ((0, 4), (3, 2), (1, 5))
+    P = []
+    for k in range(6):
+        u, v = (s[i] for i in pairs[k % 3])
+        P.append(MK._fq2_mul(u, v) if k < 3 else
+                 MK._fq2_mul(FU._add(u, v), FU._add(FU._xi(v), u)))
+    out = []
+    for j in range(6):
+        if j < 3:
+            t = FU._sub(FU._sub(P[3 + j], P[j]), FU._xi(P[j]))
+            x = FU._sub(t, s[j])
+        else:
+            tmp = P[(j + 2) % 3]
+            t = FU._add(tmp, tmp)
+            t = FU._xi(t) if j == 3 else t
+            x = FU._add(t, s[j])
+        out.append(FU._add(FU._add(x, x), t))
+    return torch.stack(out).reshape(12, 16, -1)
+
+
+@pytest.mark.parametrize("op", ["mul", "mul_conj", "cyc_sqr"])
+def test_team_spelling_equals_plain_version(op):
+    """The team's Fq12 product (also against conj(b), digit 2 of the
+    ladder) and cyclotomic square equal fq12_mul_plain and
+    fq12_cyc_sqr_plain bit for bit, on random residues with 0, 1 and
+    q - 1 in the first lanes of every coefficient (kernel_cases.residues,
+    row 11's case inputs)."""
+    from bn254_tpu_torch import kernel_cases as KC
+    rng = np.random.default_rng(SEED + 9)
+    a, b = KC.residues(rng, 12, 16, "cpu"), KC.residues(rng, 12, 16, "cpu")
+    b[:, :, 3:6] = a[:, :, :3]          # b's edge values meet a's in other lanes
+    if op == "cyc_sqr":
+        assert torch.equal(team_cyc_sqr(a), FU.fq12_cyc_sqr_plain(a))
+    elif op == "mul":
+        assert torch.equal(team_fq12_mul(a, b), FU.fq12_mul_plain(a, b))
+    else:
+        conj = FU._conj12(b.view(2, 3, 2, 16, -1)).reshape(12, 16, -1)
+        assert torch.equal(team_fq12_mul(a, b, conj=True), FU.fq12_mul_plain(a, conj))
