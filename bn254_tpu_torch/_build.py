@@ -10,8 +10,9 @@ Field constants reach the kernels through ``_build/bn254_consts.h``,
 generated here from ``bn254_tpu_torch.spec.constants`` (the port's copy of
 the oracle) through the port's ``Mod``: the Fq modulus, -q^-1 mod 2^32,
 q^2 (16 words: the lazy Fq2 product's offset) and the Montgomery forms
-of 1, 1/2 and the twist coefficient b2.  (The Montgomery kernels take
-their modulus as an argument instead, so they serve Fr as well.)
+of 1, 1/2 and the twist coefficient b2, and the Miller kernel's team
+schedule (``team_schedule.header``).  (The Montgomery kernels take their
+modulus as an argument instead, so they serve Fr as well.)
 
 Every C entry returns ``cudaGetLastError()`` right after its launch;
 ``launch`` raises if it is not 0 and otherwise adds one to the kernel's
@@ -28,7 +29,7 @@ from pathlib import Path
 
 import torch
 
-from . import counts
+from . import counts, team_schedule
 from .limbs import Mod
 from .spec import constants as C
 
@@ -89,7 +90,7 @@ def consts_header() -> str:
         f"#define BN254_FQ_TWO_INV {_words(mont(pow(2, C.Q - 2, C.Q)))}",
         f"#define BN254_B2_C0 {_words(mont(C.B2[0]))}",
         f"#define BN254_B2_C1 {_words(mont(C.B2[1]))}",
-        "",
+        team_schedule.header(),
     ])
 
 

@@ -17,9 +17,22 @@
 // xi applied part way, read from a per-thread table of slot numbers and
 // signs, so a warp does not run six different formulas one after the
 // other.  Every value is fully reduced after each op, so the outputs are
-// the single-thread formulas' (fq12_mul, fq12_cyclotomic_sqr) bit for
-// bit: the same products, added in another grouping.  These are the
-// building blocks for the other whole-Fq12 kernels (rows 6, 9, 13).
+// the single-thread formulas' (fq12_mul, fq12_cyclotomic_sqr, fq12_sqr,
+// fq12_mul_by_024, g2_dbl_step, g2_add_step) bit for bit: the same field
+// values, added in another grouping.
+//
+// The team steps here and their users:
+//   team_fq12_mul_products / _coeff   Fq12 product: row 9 (k_fq12_mul),
+//                                     row 11's nonzero digits
+//   team_cyc_sqr_products / _coeff    Granger-Scott square: row 11
+//                                     (k_fq12_cyc_pow)
+//   team_round over a TeamRound table the Miller steps of row 6
+//                                     (k_miller_precompute): the Fq12
+//                                     square, the 024 fold, the G2
+//                                     doubling and mixed addition steps,
+//                                     scheduled by team_schedule.py
+// Rows 8 (the fold) and 13 (the square) still run one thread a lane; the
+// table's square and fold rounds are their team form.
 #pragma once
 
 #include "bn254.cuh"
@@ -44,39 +57,192 @@ __device__ __forceinline__ void st2_s(uint32_t* s, int i, const Fq2& v) {
 }
 
 // ---------------------------------------------------------------------------
-// Inlined Fq2 ops.  The product is the lazy-reduction Karatsuba
-// (bn254.cuh fq2_mul_lazy_inl: three 512-bit products, two reductions,
-// 2.5 products' work), the same canonical value as three CIOS products;
-// xi is bn254.cuh fq2_mul_by_xi_inl.
+// Field adds on the carry flag.  A PTX add.cc / addc chain carries from word
+// to word in one instruction a word, where bn254.cuh's 64-bit C adds take
+// about three; the team's coefficient steps and operand sums are mostly
+// these adds.  The host build of the sources (no PTX) takes bn254.cuh's.
 // ---------------------------------------------------------------------------
 
-// a - b if neg else a + b, without a branch: b becomes q - b (in [1, q],
-// so a + (q - b) < 2q and one conditional subtraction ends it, also for
-// b = 0)
-__device__ __forceinline__ void fq_addsub(Fq& r, const Fq& a, const Fq& b, bool neg) {
-  const Modulus m = fq_modulus();
-  uint32_t nb[8], br = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    uint64_t x = (uint64_t)m.q[j] - b.v[j] - br;
-    nb[j] = (uint32_t)x;
-    br = (uint32_t)(x >> 63);
-  }
-  Fq s;
-  uint64_t c = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    uint64_t x = (uint64_t)a.v[j] + (neg ? nb[j] : b.v[j]) + c;
-    s.v[j] = (uint32_t)x;
-    c = x >> 32;
-  }
-  cond_sub(s.v, m);
-  r = s;
+#ifdef __CUDA_ARCH__
+#define BN254_OUT8(x) "=r"((x)[0]), "=r"((x)[1]), "=r"((x)[2]), "=r"((x)[3]), \
+                      "=r"((x)[4]), "=r"((x)[5]), "=r"((x)[6]), "=r"((x)[7])
+#define BN254_IN8(x) "r"((x)[0]), "r"((x)[1]), "r"((x)[2]), "r"((x)[3]), \
+                     "r"((x)[4]), "r"((x)[5]), "r"((x)[6]), "r"((x)[7])
+
+// s = a + b mod 2^256
+__device__ __forceinline__ void add8(uint32_t s[8], const uint32_t a[8], const uint32_t b[8]) {
+  asm("add.cc.u32 %0, %8, %16;\n\t"
+      "addc.cc.u32 %1, %9, %17;\n\t"
+      "addc.cc.u32 %2, %10, %18;\n\t"
+      "addc.cc.u32 %3, %11, %19;\n\t"
+      "addc.cc.u32 %4, %12, %20;\n\t"
+      "addc.cc.u32 %5, %13, %21;\n\t"
+      "addc.cc.u32 %6, %14, %22;\n\t"
+      "addc.u32 %7, %15, %23;"
+      : BN254_OUT8(s) : BN254_IN8(a), BN254_IN8(b));
 }
 
+// d = a - b mod 2^256; returns 0xFFFFFFFF if a < b, else 0
+__device__ __forceinline__ uint32_t sub8(uint32_t d[8], const uint32_t a[8], const uint32_t b[8]) {
+  uint32_t m;
+  asm("sub.cc.u32 %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32 %8, 0, 0;"
+      : BN254_OUT8(d), "=r"(m) : BN254_IN8(a), BN254_IN8(b));
+  return m;
+}
+
+// r = a + b + cin over 8 words (cin 0 or 1); returns the carry out
+__device__ __forceinline__ uint32_t add8c(uint32_t r[8], const uint32_t a[8], const uint32_t b[8],
+                                          uint32_t cin) {
+  uint32_t c, unused;
+  asm("add.cc.u32 %9, %26, 0xffffffff;\n\t"     // carry flag = cin
+      "addc.cc.u32 %0, %10, %18;\n\t"
+      "addc.cc.u32 %1, %11, %19;\n\t"
+      "addc.cc.u32 %2, %12, %20;\n\t"
+      "addc.cc.u32 %3, %13, %21;\n\t"
+      "addc.cc.u32 %4, %14, %22;\n\t"
+      "addc.cc.u32 %5, %15, %23;\n\t"
+      "addc.cc.u32 %6, %16, %24;\n\t"
+      "addc.cc.u32 %7, %17, %25;\n\t"
+      "addc.u32 %8, 0, 0;"
+      : BN254_OUT8(r), "=r"(c), "=r"(unused) : BN254_IN8(a), BN254_IN8(b), "r"(cin));
+  return c;
+}
+
+// r = a - b - bin over 8 words (bin 0 or 1); returns the borrow out
+__device__ __forceinline__ uint32_t sub8b(uint32_t r[8], const uint32_t a[8], const uint32_t b[8],
+                                          uint32_t bin) {
+  uint32_t m, unused;
+  asm("sub.cc.u32 %9, 0, %26;\n\t"              // borrow flag = bin
+      "subc.cc.u32 %0, %10, %18;\n\t"
+      "subc.cc.u32 %1, %11, %19;\n\t"
+      "subc.cc.u32 %2, %12, %20;\n\t"
+      "subc.cc.u32 %3, %13, %21;\n\t"
+      "subc.cc.u32 %4, %14, %22;\n\t"
+      "subc.cc.u32 %5, %15, %23;\n\t"
+      "subc.cc.u32 %6, %16, %24;\n\t"
+      "subc.cc.u32 %7, %17, %25;\n\t"
+      "subc.u32 %8, 0, 0;"
+      : BN254_OUT8(r), "=r"(m), "=r"(unused) : BN254_IN8(a), BN254_IN8(b), "r"(bin));
+  return m & 1;
+}
+#undef BN254_OUT8
+#undef BN254_IN8
+#endif
+
+// a + b mod q for reduced a, b: a + b < 2q < 2^256, then one subtraction
+__device__ __forceinline__ Fq tfq_add(const Fq& a, const Fq& b) {
+  Fq r;
+#ifdef __CUDA_ARCH__
+  const Modulus md = fq_modulus();
+  Fq s;
+  add8(s.v, a.v, b.v);
+  const uint32_t m = sub8(r.v, s.v, md.q);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.v[j] = m ? s.v[j] : r.v[j];
+#else
+  fq_add(r, a, b);
+#endif
+  return r;
+}
+
+// a - b mod q for reduced a, b: on a borrow add q back (the 2^256 wraps)
+__device__ __forceinline__ Fq tfq_sub(const Fq& a, const Fq& b) {
+  Fq r;
+#ifdef __CUDA_ARCH__
+  const Modulus md = fq_modulus();
+  uint32_t d[8], qm[8];
+  const uint32_t m = sub8(d, a.v, b.v);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) qm[j] = md.q[j] & m;
+  add8(r.v, d, qm);
+#else
+  fq_sub(r, a, b);
+#endif
+  return r;
+}
+
+__device__ __forceinline__ Fq2 tfq2_add(const Fq2& a, const Fq2& b) {
+  return Fq2{tfq_add(a.c0, b.c0), tfq_add(a.c1, b.c1)};
+}
+
+__device__ __forceinline__ Fq2 tfq2_sub(const Fq2& a, const Fq2& b) {
+  return Fq2{tfq_sub(a.c0, b.c0), tfq_sub(a.c1, b.c1)};
+}
+
+// a * (9 + i) = (9 a0 - a1, 9 a1 + a0), 9x = 8x + x (fq2_mul_by_xi_inl's steps)
+__device__ __forceinline__ Fq2 team_xi(const Fq2& a) {
+  Fq2 d = tfq2_add(a, a);
+  d = tfq2_add(d, d);
+  d = tfq2_add(d, d);
+  d = tfq2_add(d, a);
+  return Fq2{tfq_sub(d.c0, a.c1), tfq_add(d.c1, a.c0)};
+}
+
+// ---------------------------------------------------------------------------
+// Inlined Fq2 ops.  The product is the lazy-reduction Karatsuba of
+// bn254.cuh fq2_mul_lazy_inl (three 512-bit products, two reductions, 2.5
+// products' work; its bounds are stated there), the same canonical value
+// as three CIOS products, with its wide sums and differences and the
+// reductions' last subtraction on the carry flag.
+// ---------------------------------------------------------------------------
+
+#ifdef __CUDA_ARCH__
+// fq2_mul_lazy_inl's redc_wide with the carry-flag subtraction
+__device__ __forceinline__ Fq team_redc(uint32_t t[16], const Modulus& m) {
+  uint32_t hi = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint32_t mm = t[i] * m.qinv;
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint64_t s = (uint64_t)mm * m.q[j] + t[i + j] + c;
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[i + 8] + c + hi;
+    t[i + 8] = (uint32_t)s;
+    hi = (uint32_t)(s >> 32);
+  }
+  Fq r;
+  const uint32_t bw = sub8b(r.v, t + 8, m.q, 0);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.v[j] = bw ? t[j + 8] : r.v[j];
+  return r;
+}
+#endif
+
+__device__ __forceinline__ Fq2 team_fq2_mul(const Fq2& a, const Fq2& b) {
+#ifdef __CUDA_ARCH__
+  const Modulus md = fq_modulus();
+  const uint32_t q_squared[16] = {BN254_FQ_Q_SQUARED};
+  uint32_t sa[8], sb[8], m00[16], m11[16], cross[16], t[16];
+  add8c(sa, a.c0.v, a.c1.v, 0);                 // < 2q < 2^255
+  add8c(sb, b.c0.v, b.c1.v, 0);
+  wide_mul(m00, a.c0.v, b.c0.v);
+  wide_mul(m11, a.c1.v, b.c1.v);
+  wide_mul(cross, sa, sb);
+  sub8b(cross + 8, cross + 8, m00 + 8, sub8b(cross, cross, m00, 0));
+  sub8b(cross + 8, cross + 8, m11 + 8, sub8b(cross, cross, m11, 0));   // a0 b1 + a1 b0
+  add8c(t + 8, m00 + 8, q_squared + 8, add8c(t, m00, q_squared, 0));
+  sub8b(t + 8, t + 8, m11 + 8, sub8b(t, t, m11, 0));                   // a0 b0 - a1 b1 + q^2
+  return Fq2{team_redc(t, md), team_redc(cross, md)};
+#else
+  return fq2_mul_lazy_inl(a, b);
+#endif
+}
+
+// a - b if neg else a + b
 __device__ __forceinline__ void fq2_addsub(Fq2& r, const Fq2& a, const Fq2& b, bool neg) {
-  fq_addsub(r.c0, a.c0, b.c0, neg);
-  fq_addsub(r.c1, a.c1, b.c1, neg);
+  r = neg ? tfq2_sub(a, b) : tfq2_add(a, b);
 }
 
 __device__ __forceinline__ Fq2 fq2_select(bool c, const Fq2& a, const Fq2& b) {
@@ -105,9 +271,8 @@ __device__ __forceinline__ Fq2 team_half(const uint32_t* s, int m, int c, bool c
   if (m != 1) r = ld2_s(s, c);
   if (m != 0) {
     Fq2 hi = ld2_s(s, 3 + c);
-    if (conj) fq2_neg(hi, hi);
-    if (m == 1) r = hi;
-    else fq2_add(r, r, hi);
+    if (conj) hi = tfq2_sub(Fq2{fq_const_zero(), fq_const_zero()}, hi);
+    r = m == 1 ? hi : tfq2_add(r, hi);
   }
   return r;
 }
@@ -115,9 +280,7 @@ __device__ __forceinline__ Fq2 team_half(const uint32_t* s, int m, int c, bool c
 // Devegili operand k of Fq6 half m
 __device__ __forceinline__ Fq2 team_operand(const uint32_t* s, int m, int k, bool conj) {
   if (k < 3) return team_half(s, m, k, conj);
-  Fq2 x = team_half(s, m, k == 3 ? 1 : 0, conj), y = team_half(s, m, k == 4 ? 1 : 2, conj);
-  fq2_add(x, x, y);
-  return x;
+  return tfq2_add(team_half(s, m, k == 3 ? 1 : 0, conj), team_half(s, m, k == 4 ? 1 : 2, conj));
 }
 
 // product step: thread k writes slots k, 6 + k, 12 + k of P
@@ -125,11 +288,8 @@ __device__ __forceinline__ void team_fq12_mul_products(int k, uint32_t* P, const
                                                        const uint32_t* b, bool conj_b) {
 #pragma unroll 1
   for (int m = 0; m < 3; ++m)
-    st2_s(P, 6 * m + k, fq2_mul_lazy_inl(team_operand(a, m, k, false), team_operand(b, m, k, conj_b)));
-  Fq2 s2 = ld2_s(P, 12 + k);
-  fq2_sub(s2, s2, ld2_s(P, k));
-  fq2_sub(s2, s2, ld2_s(P, 6 + k));
-  st2_s(P, 12 + k, s2);
+    st2_s(P, 6 * m + k, team_fq2_mul(team_operand(a, m, k, false), team_operand(b, m, k, conj_b)));
+  st2_s(P, 12 + k, tfq2_sub(tfq2_sub(ld2_s(P, 12 + k), ld2_s(P, k)), ld2_s(P, 6 + k)));
 }
 
 // The coefficient tables.  With Dev_0(X) = X0 + xi(X3 - X1 - X2), Dev_1(X)
@@ -181,7 +341,7 @@ __device__ __forceinline__ Fq2 team_fq12_mul_coeff(const uint32_t* P, int j) {
 #pragma unroll 1
   for (int t = 0; t < nb; ++t, tb >>= 6)
     fq2_addsub(acc, acc, ld2_s(P, (int)(tb >> 1) & 31), tb & 1);
-  acc = fq2_mul_by_xi_inl(acc);
+  acc = team_xi(acc);
 #pragma unroll 1
   for (int t = 0; t < na; ++t, ta >>= 6)
     fq2_addsub(acc, acc, ld2_s(P, (int)(ta >> 1) & 31), ta & 1);
@@ -200,13 +360,11 @@ __device__ __forceinline__ void team_cyc_sqr_products(int k, uint32_t* P, const 
   const int iu = p == 0 ? 0 : (p == 1 ? 3 : 1), iv = p == 0 ? 4 : (p == 1 ? 2 : 5);
   Fq2 x = ld2_s(a, iu), y = ld2_s(a, iv);
   if (k >= 3) {
-    Fq2 s;
-    fq2_add(s, x, y);
-    y = fq2_mul_by_xi_inl(y);
-    fq2_add(y, y, x);
+    const Fq2 s = tfq2_add(x, y);
+    y = tfq2_add(team_xi(y), x);
     x = s;
   }
-  st2_s(P, k, fq2_mul_lazy_inl(x, y));
+  st2_s(P, k, team_fq2_mul(x, y));
 }
 
 // coefficient step: new coefficient j from the pair products and the old
@@ -218,17 +376,124 @@ __device__ __forceinline__ Fq2 team_cyc_sqr_coeff(int j, const uint32_t* P, cons
   const bool lo = j < 3;
   const Fq2 z = ld2_s(a, j);
   const Fq2 u = ld2_s(P, lo ? j : (j + 2) % 3), w = ld2_s(P, 3 + j % 3);
-  const Fq2 xu = fq2_mul_by_xi_inl(u);
-  Fq2 s, t, x;
-  fq2_add(s, u, xu);
-  fq2_sub(s, w, s);                          // ta = w - u - xi u
-  x = fq2_select(j == 3, xu, u);
-  fq2_add(x, x, x);                          // tb, or xi tb for j = 3
-  t = fq2_select(lo, s, x);
+  const Fq2 xu = team_xi(u);
+  const Fq2 s = tfq2_sub(w, tfq2_add(u, xu));           // ta = w - u - xi u
+  Fq2 x = fq2_select(j == 3, xu, u);
+  x = tfq2_add(x, x);                                    // tb, or xi tb for j = 3
+  const Fq2 t = fq2_select(lo, s, x);
   fq2_addsub(x, t, z, lo);
-  fq2_add(x, x, x);
-  fq2_add(x, x, t);
-  return x;
+  x = tfq2_add(x, x);
+  return tfq2_add(x, t);
+}
+
+// ---------------------------------------------------------------------------
+// Table-driven rounds (the Miller kernel, row 6).  The schedule
+// (bn254_tpu_torch/team_schedule.py, emitted into bn254_consts.h) lists a
+// step's rounds; in a round thread k computes the Fq2 products k, k + 6,
+// k + 12 and, after a __syncwarp, the linear combinations k, k + 6.  An
+// operand or combination is xi(sum of b) + sum of a, each sum its positive
+// slots added, then its negative slots subtracted, halved or doubled after
+// (post 1, 2); slot BN254_TEAM_BY stands for the addition's base y (Q's or
+// -Q's).  Every thread runs this one code; only the table differs.
+// ---------------------------------------------------------------------------
+
+struct TeamLin {          // 16 bytes
+  uint64_t terms;         // slots, 6 bits each: b's positive, b's negative, a's positive, a's negative
+  uint32_t counts;        // those four counts, 4 bits each, then post (bits 16-17)
+  uint32_t dst;           // 0xFF: no task
+};
+struct TeamMul { TeamLin x, y; };             // the product's slot is x.dst
+struct TeamRound {
+  TeamMul mul[18];
+  TeamLin lin[12];
+  int passes[4];          // product passes, combination passes, padding to 16 bytes
+};
+
+// v / 2 mod q for a reduced v: v even -> v >> 1, odd -> (v + q) >> 1 (v +
+// q < 2q < 2^255, no carry out); the Montgomery form of x / 2 is the
+// Montgomery form of x halved, so this is the product with 1/2, exactly
+__device__ __forceinline__ void fq_half(Fq& r, const Fq& a) {
+  const Modulus m = fq_modulus();
+  const bool odd = a.v[0] & 1;
+  uint32_t t[8];
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint64_t x = (uint64_t)a.v[j] + (odd ? m.q[j] : 0u) + c;
+    t[j] = (uint32_t)x;
+    c = x >> 32;
+  }
+#pragma unroll
+  for (int j = 0; j < 7; ++j) r.v[j] = (t[j] >> 1) | (t[j + 1] << 31);
+  r.v[7] = t[7] >> 1;
+}
+
+__device__ __forceinline__ Fq2 ld2_term(const uint32_t* s, uint64_t t, int by) {
+  const int i = (int)t & 63;
+  return ld2_s(s, i == BN254_TEAM_BY ? by : i);
+}
+
+// acc + sum of the next np slots of t - sum of the nn after them (t moves
+// past them); with fresh, acc starts as the first positive slot (or 0)
+__device__ __forceinline__ Fq2 team_sum(const uint32_t* s, Fq2 acc, bool fresh, uint64_t& t,
+                                        int np, int nn, int by) {
+  int i = 0;
+  if (fresh) {
+    const Fq2 zero{fq_const_zero(), fq_const_zero()};
+    acc = np ? ld2_term(s, t, by) : zero;
+    if (np) {
+      t >>= 6;
+      i = 1;
+    }
+  }
+#pragma unroll 1
+  for (; i < np; ++i, t >>= 6) acc = tfq2_add(acc, ld2_term(s, t, by));
+#pragma unroll 1
+  for (int j = 0; j < nn; ++j, t >>= 6) acc = tfq2_sub(acc, ld2_term(s, t, by));
+  return acc;
+}
+
+__device__ __forceinline__ Fq2 team_lin(const uint32_t* s, const TeamLin& c, int by) {
+  const int nbp = c.counts & 15, nbn = (c.counts >> 4) & 15;
+  const int nap = (c.counts >> 8) & 15, nan = (c.counts >> 12) & 15, post = c.counts >> 16;
+  const bool xi = nbp + nbn != 0;
+  uint64_t t = c.terms;
+  Fq2 acc{fq_const_zero(), fq_const_zero()};
+  if (xi) acc = team_xi(team_sum(s, acc, true, t, nbp, nbn, by));
+  acc = team_sum(s, acc, !xi, t, nap, nan, by);
+  if (post == 1) {
+    fq_half(acc.c0, acc.c0);
+    fq_half(acc.c1, acc.c1);
+  } else if (post == 2) {
+    acc = tfq2_add(acc, acc);
+  }
+  return acc;
+}
+
+// one round of lane s's team; inactive threads only keep the barriers.
+// Each task is fetched one pass ahead, so that its load from the constant
+// bank (six addresses a warp, served one after another) overlaps the
+// product or combination before it.
+__device__ __forceinline__ void team_round(const TeamRound& r, int k, uint32_t* s, int by,
+                                           bool active) {
+  const int mul_passes = r.passes[0], lin_passes = r.passes[1];
+  TeamMul m = r.mul[k];
+  TeamLin c = r.lin[k];
+#pragma unroll 1
+  for (int p = 0; p < mul_passes; ++p) {
+    const TeamMul next = r.mul[p + 1 < mul_passes ? 6 * (p + 1) + k : k];
+    if (active && m.x.dst != 0xFF)
+      st2_s(s, m.x.dst, team_fq2_mul(team_lin(s, m.x, by), team_lin(s, m.y, by)));
+    m = next;
+  }
+  __syncwarp();
+#pragma unroll 1
+  for (int p = 0; p < lin_passes; ++p) {
+    const TeamLin next = r.lin[p + 1 < lin_passes ? 6 * (p + 1) + k : k];
+    if (active && c.dst != 0xFF) st2_s(s, c.dst, team_lin(s, c, by));
+    c = next;
+  }
+  __syncwarp();
 }
 
 }  // namespace bn254

@@ -1,36 +1,38 @@
 // Fused tower-op kernels (queue rows 5-11, 13-16), replacing the
 // bn254_tpu/pallas_fused.py kernels named beside each one below.
 //
-// One thread per batch lane, 128-thread blocks, the ragged edge masked,
-// except k_fq12_cyc_pow (below).  A kernel reads its operands once, runs
-// the whole formula (or the whole ladder / Miller schedule) with every
-// intermediate on the thread's registers and stack, and writes its
-// result once, as the TPU kernels keep theirs in VMEM.  Step kinds and
-// ladder digits come as a small int32 device array that every lane reads
-// in the same order, so a warp never diverges on them.
+// Two designs.  One thread a lane (rows 5, 7, 8, 10, 13-16: k_fq_pow,
+// k_g2_add_step, k_fq12_fold_line, k_fq12_cyc_sqr, k_fq12_sqr,
+// k_g2_dbl_step, k_fq2_mul_fused, k_fq2_sqr_fused): 128-thread blocks, the
+// ragged edge masked; a kernel reads its operands once, runs the whole
+// formula with every intermediate on the thread's registers and stack, and
+// writes its result once, as the TPU kernels keep theirs in VMEM.  Bound:
+// integer multiply-adds (an Fq12 product is 54 Montgomery products, about
+// 7,000 32x32->64 multiply-adds) and the local-memory traffic of the tower
+// state (f alone is 12 Fq = 96 words, past what the register file gives one
+// thread, and the __noinline__ tower functions pass their arguments through
+// the stack): ptxas gives fq_pow 40 registers and no stack, the one-thread
+// Fq12 kernels 138-236 registers and 1-3 KB stack frames.
 //
-// Bound: integer multiply-adds (an Fq12 product is 54 Montgomery
-// products, about 7,000 32x32->64 multiply-adds) and the local-memory
-// traffic of the tower state (f alone is 12 Fq = 96 words, past what the
-// register file gives one thread, and the __noinline__ tower functions
-// pass their arguments through the stack).  ptxas gives fq_pow 40
-// registers and no stack, but the one-thread Fq12 kernels 138-236
-// registers and 1-3 KB stack frames, so only two or three 128-thread
-// blocks fit an SM (H100 80GB HBM3, 700 W).
-//
-// k_fq12_cyc_pow (row 11, the final exponentiation's three z-ladders,
-// about 2,360 Montgomery products a lane) runs a team of six threads of
-// one warp per lane (fq12_team.cuh), five lanes to a warp, 20 lanes to a
-// 128-thread block.  res and a sit in shared memory (2,400 bytes a lane
-// with the product scratch, 48,000 a block); per digit the team computes
-// the cyclotomic square's 6 Fq2 products (one a thread), exchanges them,
-// and each thread writes one new coefficient; a nonzero digit adds the
-// Fq12 product's 18 (three a thread), with conj(a) read by negating a.c1.
-// At B = 16384 that is 98,304 threads.  Bound: the products; the team
-// adds the coefficient steps' adds and leaves 2 threads of 32 idle.
-// ptxas (sm_90a): 205 registers, no stack, so 8 warps on an SM; lower
-// register caps spill to the stack and run slower (regcap_sweep.py,
-// PERF.md).
+// A team of six threads of one warp a lane (rows 6, 9, 11: k_miller_
+// precompute, k_fq12_mul, k_fq12_cyc_pow; fq12_team.cuh), five lanes to a
+// warp, threads 30 and 31 idle: the lane's Fq12 and its product scratch
+// sit in shared memory as Fq2 slots, each thread computes a sixth of an
+// op's Fq2 products, and after a __syncwarp one output coefficient, so no
+// thread holds more than two Fq2 operands and a product, and no stack is
+// used.  At B = 16384 that is 98,304 threads where one a lane gives 16,384
+// (fewer warps than the card's 528 schedulers).  ptxas (sm_90a) and shared
+// memory:
+//   k_miller_precompute  104 registers, no stack; 41 slots = 3,280 B a
+//                        lane, 32,800 B a block of 2 warps (static)
+//   k_fq12_mul           180 registers, no stack; 2,400 B a lane, 48,000
+//                        B a block of 4 warps (static)
+//   k_fq12_cyc_pow       232 registers, no stack; the same 48,000 B
+// The Miller kernel is limited to 12-13 warps an SM by its shared memory,
+// the other two to 8 by their registers; register caps spill and run
+// slower (regcap_sweep.py, PERF.md).  Step kinds and ladder digits come as
+// a small int32 device array that every lane reads in the same order, so
+// a warp never diverges on them.
 #include "bn254.cuh"
 #include "fq12_team.cuh"
 
@@ -54,50 +56,85 @@ __global__ void k_fq_pow(const int32_t* __restrict__ digits, int n,
   store(out, 0, B, lane, res);
 }
 
+// Team geometry (fq12_team.cuh): thread k of team t of warp v holds
+// coefficient k of lane 5 v + t of the block; threads 30 and 31 of each
+// warp, and teams past B, only keep the warp's barriers.
+constexpr int kTeam = 6, kTeamsPerWarp = 5;
+
+struct TeamThread {
+  int k, slot, lane;
+  bool active;
+};
+
+__device__ __forceinline__ TeamThread team_thread(int lanes_per_block, int B) {
+  const int warp = threadIdx.x / 32, team = (threadIdx.x % 32) / kTeam;
+  TeamThread t;
+  t.k = threadIdx.x % 32 - team * kTeam;
+  t.slot = warp * kTeamsPerWarp + team;
+  t.lane = blockIdx.x * lanes_per_block + t.slot;
+  t.active = team < kTeamsPerWarp && t.lane < B;
+  return t;
+}
+
 // pallas_fused.py _miller_call_impl: the 85 scheduled steps.  kind 0:
 // f = f^2 and a doubling step; kind 1/2: mixed addition with +Q/-Q.  Each
-// step then folds its line into f.
+// step then folds its line into f.  A team of six threads a lane runs the
+// schedule's rounds (team_schedule.py: 3 rounds a doubling step, 3 an
+// addition after it); the lane's BN254_TEAM_SLOTS Fq2 slots (3,280 bytes)
+// sit in static shared memory, 2 warps = 10 lanes a block (32,800 bytes,
+// under the 48 KB static limit; 1 and 4 warps timed within 1 %).
+constexpr int kMillerWarps = 2;
+constexpr int kMillerLanes = kTeamsPerWarp * kMillerWarps;
+constexpr int kMillerLaneWords = BN254_TEAM_SLOTS * kTeamSlot;
+static __constant__ TeamRound kMillerRounds[BN254_MILLER_NROUNDS] = BN254_MILLER_ROUNDS;
+
 __global__ void k_miller_precompute(const int32_t* __restrict__ kinds, int n,
                                     const int32_t* __restrict__ p,
                                     const int32_t* __restrict__ q,
                                     int32_t* __restrict__ f_out,
                                     int32_t* __restrict__ r_out, int B) {
-  int lane = lane_index();
-  if (lane >= B) return;
-  Fq px, py;
-  load(px, p, 0, B, lane);
-  load(py, p, 1, B, lane);
-  Fq2 qx, qy, qy_neg;
-  load(qx, q, 0, B, lane);
-  load(qy, q, 2, B, lane);
-  fq2_neg(qy_neg, qy);
-
-  G2J r;
-  r.x = qx;
-  r.y = qy;
-  r.z.c0 = fq_const_one();
-  r.z.c1 = fq_const_zero();
-  Fq12 f;
-  Fq2 zero2;
-  zero2.c0 = fq_const_zero();
-  zero2.c1 = fq_const_zero();
-  f.c0.c0 = r.z;
-  f.c0.c1 = zero2; f.c0.c2 = zero2;
-  f.c1.c0 = zero2; f.c1.c1 = zero2; f.c1.c2 = zero2;
-
-  Line l;
-  for (int i = 0; i < n; ++i) {
-    int kind = kinds[i];
-    if (kind == 0) {
-      fq12_sqr(f, f);
-      g2_dbl_step(r, l);
+  __shared__ __align__(16) uint32_t s_lanes[kMillerLanes * kMillerLaneWords];
+  const TeamThread t = team_thread(kMillerLanes, B);
+  const int k = t.k;
+  uint32_t* s = s_lanes + (t.active ? t.slot : 0) * kMillerLaneWords;
+  if (t.active) {      // f = 1, R = (qx, qy, 1), Q, -qy, (px, 0), (py, 0), b2
+    const Fq zero = fq_const_zero(), one = fq_const_one();
+    st2_s(s, k, Fq2{k == 0 ? one : zero, zero});
+    Fq2 v;
+    if (k < 3) {
+      load(v, q, k == 0 ? 0 : 2, B, t.lane);
+      if (k == 2) {
+        fq2_neg(v, v);
+        st2_s(s, BN254_SLOT_RZ, Fq2{one, zero});
+      } else {
+        st2_s(s, BN254_SLOT_RX + k, v);
+      }
+      st2_s(s, BN254_SLOT_QX + k, v);
+    } else if (k < 5) {
+      load(v.c0, p, k - 3, B, t.lane);
+      st2_s(s, BN254_SLOT_PX + k - 3, Fq2{v.c0, zero});
     } else {
-      g2_add_step(r, l, qx, kind == 1 ? qy : qy_neg);
+      st2_s(s, BN254_SLOT_B2, Fq2{Fq{{BN254_B2_C0}}, Fq{{BN254_B2_C1}}});
     }
-    fold_line(f, l, px, py);
   }
-  store(f_out, B, lane, f);
-  store3(r_out, B, lane, r.x, r.y, r.z);
+  __syncwarp();
+  // team_schedule.step_rounds: a doubling step runs rounds 0, 1, 2, or 0,
+  // 1, 3 when an addition follows (3 also takes the addition's first
+  // products); an addition runs 4-7, or 5-7 after a doubling step.  BY is
+  // the y of the addition's base.
+  for (int i = 0; i < n; ++i) {
+    const int kind = kinds[i];
+    const int other = kind == 0 ? (i + 1 < n ? kinds[i + 1] : 0) : (i > 0 ? kinds[i - 1] : 1);
+    const int by = (kind == 0 ? other : kind) == 2 ? BN254_SLOT_QN : BN254_SLOT_QY;
+    const int r0 = kind == 0 ? 0 : (other == 0 ? 5 : 4), r_end = kind == 0 ? 3 : 8;
+#pragma unroll 1
+    for (int r = r0; r < r_end; ++r)
+      team_round(kMillerRounds[r == 2 && other != 0 ? 3 : r], k, s, by, t.active);
+  }
+  if (t.active) {
+    store(f_out, 2 * k, B, t.lane, ld2_s(s, k));
+    if (k < 3) store(r_out, 2 * k, B, t.lane, ld2_s(s, BN254_SLOT_RX + k));
+  }
 }
 
 // pallas_fused.py _call_impl("g2_add_step")
@@ -186,16 +223,33 @@ __global__ void k_fq12_fold_line(const int32_t* __restrict__ f_in,
   store(out, B, lane, f);
 }
 
-// pallas_fused.py _call_impl("fq12_mul")
+// pallas_fused.py _call_impl("fq12_mul"): a team of six threads a lane,
+// 20 lanes a block (row 11's geometry); a and b in shared memory, each
+// thread three of the 18 lazy Fq2 products, then one output coefficient.
+// Each thread loads and stores its own coefficient (six 5-lane runs a warp
+// instruction); staging a block's lanes through shared memory so that
+// the loads coalesce measured slower (PERF.md).
+constexpr int kCycWarps = 4;
+constexpr int kCycLanes = kTeamsPerWarp * kCycWarps;   // lanes a block
+
 __global__ void k_fq12_mul(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                            int32_t* __restrict__ out, int B) {
-  int lane = lane_index();
-  if (lane >= B) return;
-  Fq12 x, y;
-  load(x, a, B, lane);
-  load(y, b, B, lane);
-  fq12_mul(x, x, y);
-  store(out, B, lane, x);
+  __shared__ __align__(16) uint32_t s_lanes[kCycLanes * kTeamLaneWords];
+  const TeamThread t = team_thread(kCycLanes, B);
+  uint32_t* x = s_lanes + (t.active ? t.slot : 0) * kTeamLaneWords;
+  uint32_t* y = x + 6 * kTeamSlot;
+  uint32_t* P = x + 12 * kTeamSlot;
+  if (t.active) {
+    Fq2 v;
+    load(v, a, 2 * t.k, B, t.lane);
+    st2_s(x, t.k, v);
+    load(v, b, 2 * t.k, B, t.lane);
+    st2_s(y, t.k, v);
+  }
+  __syncwarp();
+  if (t.active) team_fq12_mul_products(t.k, P, x, y, false);
+  __syncwarp();
+  if (t.active) store(out, 2 * t.k, B, t.lane, team_fq12_mul_coeff(P, t.k));
 }
 
 // pallas_fused.py _call_impl("fq12_cyc_sqr")
@@ -209,23 +263,17 @@ __global__ void k_fq12_cyc_sqr(const int32_t* __restrict__ a, int32_t* __restric
 }
 
 // pallas_fused.py _pow_call_impl("fq12_cyc_pow"): res = a; per digit a
-// cyclotomic square, then digit 1 multiplies by a, digit 2 by conj(a).
-// Thread k of team t of warp v holds coefficient k of lane 5 v + t of the
-// block; threads 30 and 31 of each warp, and teams past B, only keep the
-// warp's barriers.
-constexpr int kTeam = 6, kTeamsPerWarp = 5, kCycWarps = 4;
-constexpr int kCycLanes = kTeamsPerWarp * kCycWarps;   // lanes a block
-
-// No __launch_bounds__: it would make nvcc ignore -maxrregcount, which
-// regcap_sweep.py sets to time the kernel under register caps.
+// cyclotomic square, then digit 1 multiplies by a, digit 2 by conj(a);
+// row 9's geometry.  No __launch_bounds__: it would make nvcc ignore
+// -maxrregcount, which regcap_sweep.py sets to time the kernel under
+// register caps.
 __global__ void k_fq12_cyc_pow(const int32_t* __restrict__ digits, int n,
                                const int32_t* __restrict__ a, int32_t* __restrict__ out, int B) {
   __shared__ __align__(16) uint32_t s_lanes[kCycLanes * kTeamLaneWords];
-  const int warp = threadIdx.x / 32, team = (threadIdx.x % 32) / kTeam;
-  const int k = threadIdx.x % 32 - team * kTeam, slot = warp * kTeamsPerWarp + team;
-  const int lane = blockIdx.x * kCycLanes + slot;
-  const bool active = team < kTeamsPerWarp && lane < B;
-  uint32_t* res = s_lanes + (active ? slot : 0) * kTeamLaneWords;
+  const TeamThread t = team_thread(kCycLanes, B);
+  const int k = t.k, lane = t.lane;
+  const bool active = t.active;
+  uint32_t* res = s_lanes + (active ? t.slot : 0) * kTeamLaneWords;
   uint32_t* base = res + 6 * kTeamSlot;
   uint32_t* P = res + 12 * kTeamSlot;
   if (active) {
@@ -262,7 +310,9 @@ int bn254_fq_pow(const int32_t* digits, int n, const int32_t* a, int32_t* out, i
 
 int bn254_miller_precompute(const int32_t* kinds, int n, const int32_t* p, const int32_t* q,
                             int32_t* f, int32_t* r, int B, cudaStream_t stream) {
-  BN254_LAUNCH(k_miller_precompute, kinds, n, p, q, f, r);
+  k_miller_precompute<<<(B + kMillerLanes - 1) / kMillerLanes, 32 * kMillerWarps, 0,
+                        stream>>>(kinds, n, p, q, f, r, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int bn254_g2_add_step(const int32_t* r, const int32_t* base, int32_t* r_out, int32_t* c_out,
@@ -295,7 +345,8 @@ int bn254_fq12_fold_line(const int32_t* f, const int32_t* c, const int32_t* px,
 
 int bn254_fq12_mul(const int32_t* a, const int32_t* b, int32_t* out, int B,
                    cudaStream_t stream) {
-  BN254_LAUNCH(k_fq12_mul, a, b, out);
+  k_fq12_mul<<<(B + kCycLanes - 1) / kCycLanes, 32 * kCycWarps, 0, stream>>>(a, b, out, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int bn254_fq12_cyc_sqr(const int32_t* a, int32_t* out, int B, cudaStream_t stream) {

@@ -668,7 +668,8 @@ def miller_precompute(q, p, kinds):
 
     q: affine G2 [4, 16, B]; p: affine G1 [2, 16, B]; kinds: [n, 1] int32.
     Returns (f [12, 16, B], r [6, 16, B]).  Kernel: csrc/fused.cu
-    k_miller_precompute, replacing pallas_fused.py:_miller_call_impl."""
+    k_miller_precompute (six threads a lane over team_schedule.py's
+    rounds), replacing pallas_fused.py:_miller_call_impl."""
     if not on_cuda(p):
         return miller_precompute_plain(q, p, kinds)
     batch = p.shape[-1]
@@ -763,7 +764,8 @@ def fq12_fold_line(f, c, px, py):
 
 def fq12_mul(a, b):
     """Fq12 product [12, 16, B] x [12, 16, B]. Kernel: csrc/fused.cu
-    k_fq12_mul, replacing pallas_fused.py _call_impl("fq12_mul")."""
+    k_fq12_mul (six threads a lane), replacing pallas_fused.py
+    _call_impl("fq12_mul")."""
     if not on_cuda(a):
         return fq12_mul_plain(a, b)
     batch = a.shape[-1]

@@ -42,6 +42,7 @@ from . import limbs as L
 from . import mont_kernels as MK
 from . import msm as M
 from . import probes as PB
+from . import team_schedule as TS
 from .convert import pack
 from .fields import FR
 from .pairing import _PRE_KINDS
@@ -301,8 +302,9 @@ def _io(b, coords_in_out: int):
     return coords_in_out * FQ_BYTES * b
 
 
-# Montgomery products per lane of the device formulas (csrc/bn254.cuh,
-# csrc/groups.cuh): an Fq2 product is 3, an Fq2 square 2.
+# Montgomery products per lane of the one-thread device formulas
+# (csrc/bn254.cuh, csrc/groups.cuh; rows 7, 8, 13, 14 and the group law):
+# an Fq2 product is 3, an Fq2 square 2.
 _FQ12_SQR, _G2_DBL_STEP, _G2_ADD_STEP, _FOLD = 36, 28, 37, 43
 _ADD = {1: 16, 2: 43}          # unified add, generic formula (no double)
 _DBL = {1: 7, 2: 16}
@@ -313,8 +315,8 @@ _MADD = {1: 11, 2: 30}
 # its instructions apiece: 2.5 products' work.  bench_tower.py's OPS (and
 # the probes' G Fq-products/s) count it as 3; its bound counts 2.5.
 FQ2_MUL_LAZY_PRODUCTS = 2.5
-# Fq2 products of the cyclotomic ladder (csrc/fq12_team.cuh, all lazy): 6
-# a Granger-Scott square, 18 an Fq12 product
+# Fq2 products of the team kernels (csrc/fq12_team.cuh, all lazy): 6 a
+# Granger-Scott square, 18 an Fq12 product (rows 9, 11)
 _CYC_SQR_FQ2, _FQ12_MUL_FQ2 = 6, 18
 
 
@@ -331,11 +333,24 @@ def _w_fq_pow(a, e):
     return _lanes(a) * (len(bits) + int(bits.sum())), _io(_lanes(a), 2)
 
 
+def fq2_mul_work(m) -> float:
+    """Montgomery products' work that the function needs for one of the
+    team schedule's Fq2 products: 2 for a square (both operands one sum)
+    and for a scaling by (px, 0) or (py, 0), FQ2_MUL_LAZY_PRODUCTS for a
+    general product, whatever spelling the kernel gives it."""
+    if m.x == m.y or TS.A("PX") in (m.x, m.y) or TS.A("PY") in (m.x, m.y):
+        return 2
+    return FQ2_MUL_LAZY_PRODUCTS
+
+
 def _w_miller(q, p, kinds):
+    """The Fq2 products of the rounds the team kernel runs for these kinds
+    (team_schedule.step_rounds), each at fq2_mul_work: 88.5 Montgomery
+    products a doubling step, 68 an addition."""
     k = np.asarray(kinds).ravel()
-    per = int(((k == 0) * (_FQ12_SQR + _G2_DBL_STEP) + (k != 0) * _G2_ADD_STEP).sum()
-              + len(k) * _FOLD)
-    return _lanes(p) * per, _io(_lanes(p), 4 + 2 + 12 + 6) + 4 * len(k)
+    work = sum(fq2_mul_work(m) for i in range(len(k))
+               for r in TS.step_rounds(k, i)[0] for m in TS.ROUNDS[r].muls)
+    return int(_lanes(p) * work), _io(_lanes(p), 4 + 2 + 12 + 6) + 4 * len(k)
 
 
 def _w_cyc_pow(a, digits):
@@ -416,6 +431,7 @@ CASES = (
                _fq((2,)), lambda a: (2 * _lanes(a), _io(_lanes(a), 4))),
     KernelCase("fq_pow", "fq_pow", _FU_CU, f"{_PF}:1253", FU.fq_pow, FU.fq_pow_plain,
                lambda rng, b, d: (residues(rng, 1, b, d)[0], C.Q - 2), _w_fq_pow),
+    # 16384 = 1638 blocks of 10 lanes and 4: the last block partly empty
     KernelCase("miller_precompute", "miller_precompute", _FU_CU, f"{_PF}:1395",
                FU.miller_precompute, FU.miller_precompute_plain,
                lambda rng, b, d: (residues(rng, 4, b, d), residues(rng, 2, b, d),
@@ -430,7 +446,9 @@ CASES = (
                lambda f, c, px, py: (_FOLD * _lanes(f), _io(_lanes(f), 32))),
     KernelCase("fq12_mul", "fq12_mul", _FU_CU, f"{_PF}:1022", FU.fq12_mul,
                FU.fq12_mul_plain, _fq((12, 12)),
-               lambda a, b: (54 * _lanes(a), _io(_lanes(a), 36))),
+               lambda a, b: (int(_FQ12_MUL_FQ2 * FQ2_MUL_LAZY_PRODUCTS * _lanes(a)),
+                             _io(_lanes(a), 36)),
+               batches=(16384, 1000, 3)),      # 3: fewer lanes than a warp's 5 teams
     KernelCase("fq12_cyc_sqr", "fq12_cyc_sqr", _FU_CU, f"{_PF}:1027", FU.fq12_cyc_sqr,
                FU.fq12_cyc_sqr_plain, _fq((12,)),
                lambda a: (18 * _lanes(a), _io(_lanes(a), 24))),

@@ -1,15 +1,18 @@
-"""Time one kernel at several ptxas register caps, on the card.
+"""Time one kernel under several builds, on the card.
 
-    python3 -m bn254_tpu_torch.regcap_sweep [label] [cap ...]
+    python3 -m bn254_tpu_torch.regcap_sweep [label] [variant ...]
 
-For each cap (a number, or ``none`` for the uncapped build) the kernels
-are built with ``nvcc -maxrregcount=<cap>`` (a library of their own in
-``_build/``, beside the default one), and the kernel case `label` of
-``kernel_cases`` (default ``fq12_cyc_pow[naf]``, TPU row 11) is checked
-against its plain version at its batches (tolerance 0) and timed at its
-first batch (CUDA events, mean of 10 after a warm-up).  One line per cap:
-ptxas's registers and stack of the case's entry, ms, and the bound its
-inputs give.  Default caps: none 168 128 96.
+A variant is ``none`` (the default build), a ptxas register cap (a
+number: ``nvcc -maxrregcount=<cap>``), any other nvcc flag (``-D...``
+defines a macro for a trial build of a changed source), or several of
+these joined by commas.  For each, the kernels are built with it (a
+library of their own in ``_build/``, beside the default one), and the
+kernel case `label` of ``kernel_cases`` (default ``fq12_cyc_pow[naf]``,
+TPU row 11) is checked against its plain version at its batches
+(tolerance 0) and timed at its first batch (CUDA events, mean of 10 after
+a warm-up).  One line per variant: ptxas's registers and stack of the
+case's entry, ms, and the bound its inputs give.  Default variants: none
+168 128 96.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ def main(argv) -> int:
         print("regcap_sweep: no CUDA device", file=sys.stderr)
         return 1
     label = argv[0] if argv else "fq12_cyc_pow[naf]"
-    caps = argv[1:] or ["none", "168", "128", "96"]
+    variants = argv[1:] or ["none", "168", "128", "96"]
     case = next(c for c in KC.CASES if c.label == label)
     kernel = "k_" + case.name
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -67,21 +70,22 @@ def main(argv) -> int:
     print(card, flush=True)
     dev = torch.device("cuda")
     base = list(_build.FLAGS)
-    for cap in caps:
-        _build.FLAGS = base + ([] if cap == "none" else [f"-maxrregcount={cap}"])
+    for variant in variants:
+        _build.FLAGS = base + [f"-maxrregcount={v}" if v.isdigit() else v
+                               for v in variant.split(",") if v != "none"]
         _build._LIB = None
-        _build.library_path().unlink(missing_ok=True)     # build, so that the log is this cap's
+        _build.library_path().unlink(missing_ok=True)     # build, so that the log is this variant's
         _build.library()
         usage = _entry_usage((_build.BUILD_DIR / "build.log").read_text(), kernel)
         for batch in case.batches:
             args = case.make_args(np.random.default_rng(SEED), batch, dev)
             err = KC.max_abs_err(case.kernel(*args), case.plain(*args))
             if err:
-                raise RuntimeError(f"{label} at cap {cap}, B={batch}: differs by {err}")
+                raise RuntimeError(f"{label} at {variant}, B={batch}: differs by {err}")
         args = case.make_args(np.random.default_rng(SEED), case.batches[0], dev)
         ms = _ms(lambda: case.kernel(*args))
         bound, by = KC.bound_ms(*case.work(*args))
-        print(f"{label} cap {cap}: {usage}; max_abs_err 0 at B={case.batches}; "
+        print(f"{label} {variant}: {usage}; max_abs_err 0 at B={case.batches}; "
               f"{ms:.4f} ms at B={case.batches[0]} (bound {bound:.4f} ms, {by}) [{card}]",
               flush=True)
     _build.FLAGS = base

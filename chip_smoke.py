@@ -10,7 +10,10 @@ Phases (any failure raises, so the exit code is not 0):
 1. Print the card (nvidia-smi name and power limit), build the
    twenty-three CUDA kernels from bn254_tpu_torch/csrc/ and print the
    build's seconds and ptxas's registers and stack of the MSM kernels and
-   the cyclotomic ladder (every entry's stay in
+   of the three kernels that run a team of six threads a lane
+   (csrc/fq12_team.cuh): the cyclotomic ladder (row 11), the Miller
+   kernel (row 6) and the Fq12 product (row 9); every other kernel runs
+   one thread a lane (every entry's numbers stay in
    bn254_tpu_torch/_build/build.log).
 2. Kernel vs plain version: each kernel on CUDA tensors made from a seed
    (bn254_tpu_torch/kernel_cases.py: field residues with 0, 1 and q - 1
@@ -21,12 +24,14 @@ Phases (any failure raises, so the exit code is not 0):
    tables and digits from the port's decomposition with edge scalars and
    planted coincide and P + (-P) lanes; the lazy Fq2 product's column
    extremes; the probes at their scripts' batches, 32768 and 8192) at
-   B = 16384 and at a ragged B = 1000 (n = 5000 for the MSM kernels),
+   B = 16384 and at a ragged B = 1000 (n = 5000 for the MSM kernels; the
+   Fq12 product also at B = 3, fewer lanes than a warp's five teams),
    against its plain PyTorch version on the same tensors.  Tolerance 0:
    these are integers.  The first variant of each kernel (Fq, NAF, G1,
    mul, fq_mul, signed), fq12_cyc_pow's binary digits (TPU row 12) and
    the skewed MSM timed at the main batch (CUDA events; the plain version
-   once), beside the bound its inputs give.
+   once), beside the bound its inputs give; the Miller kernel's line
+   also gives the min and max of its 10 timed calls.
 3. Main path, with every launch and plain-call counter reset first:
    ``pairing`` on 16384 Jacobian pairs (z != 1) made by spec additions as
    bench.py makes them, 8 lanes checked against the spec pairing; the
@@ -113,7 +118,9 @@ N_RAGGED = 1000
 SEED = 7
 ROW_12 = "fq12_cyc_pow[binary]"     # TPU row 12: row 11's kernel on binary digits
 TIMED = (ROW_12, "msm_accumulate[g1,skew]")   # timed beside each kernel's first variant
-PTXAS = ("k_msm_bucket_sort", "k_msm_accumulate", "k_msm_bucket_reduce", "k_fq12_cyc_pow")
+PTXAS = ("k_msm_bucket_sort", "k_msm_accumulate", "k_msm_bucket_reduce", "k_fq12_cyc_pow",
+         "k_miller_precompute", "k_fq12_mul")
+SPREAD = ("miller_precompute",)     # also the min and max of the timed reps (row 6)
 
 
 def require(ok, what: str):
@@ -160,6 +167,19 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_reps(fn, reps: int):
+    """ms of each of `reps` calls after one warm-up (CUDA events around each)."""
+    fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    events[0].record()
+    for e in events[1:]:
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
 
 
 def cuda_once(fn):
@@ -217,11 +237,17 @@ def phase_kernels(dev):
         # time the first variant (Fq, NAF, G1, signed), row 12 and the skew
         if rec is None or case.label in TIMED:
             args = case.make_args(np.random.default_rng(SEED), main_b, dev)
-            ms = cuda_ms(lambda: case.kernel(*args), 10)
+            if case.label in SPREAD:
+                reps = cuda_reps(lambda: case.kernel(*args), 10)
+                ms = sum(reps) / len(reps)
+            else:
+                ms = cuda_ms(lambda: case.kernel(*args), 10)
             _, plain_ms = cuda_once(lambda: case.plain(*args))
             bound_ms, bound_by = KC.bound_ms(*case.work(*args))
             line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                      f"bound {bound_ms:.4f} ms ({bound_by}) at B={main_b}")
+            if case.label in SPREAD:
+                line += f"; reps min {min(reps):.4f} ms, max {max(reps):.4f} ms"
         if rec is None:
             records[case.name] = rec = {
                 "name": case.name, "route": "cuda", "source": case.source,

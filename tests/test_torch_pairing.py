@@ -4,6 +4,7 @@ pairing, the spec oracle and the reference's golden vectors, on the same
 inputs.  Comparisons are exact."""
 
 import ast
+import functools
 import os
 import random
 import subprocess
@@ -11,6 +12,7 @@ import sys
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from bn254_tpu import groups as JG
@@ -26,6 +28,7 @@ from bn254_tpu_torch import groups as G
 from bn254_tpu_torch import mont_kernels as MK
 from bn254_tpu_torch import pairing as P
 from bn254_tpu_torch import tower as T
+import test_torch_tower as TT
 from test_torch_tower import assert_same, on_tape
 import golden
 
@@ -185,18 +188,36 @@ def test_fold_line_vs_jax():
     assert_packed(FU.fq12_fold_line(convert.pack(f), convert.pack(c), px, py), want)
 
 
+@functools.lru_cache(maxsize=1)
+def _jax_miller_case():
+    """Two random affine pairs and the JAX package's CPU Miller loop of
+    them (precompute interleaved with the fold, tape.py), made once for
+    the tests that compare with it."""
+    rng = random.Random(SEED + 3)
+    pa_np, qa_np = _affine_pairs([(rng.randrange(1, R), rng.randrange(1, R))
+                                  for _ in range(2)])
+    return pa_np, qa_np, on_tape(lambda q, p: tape._tape_miller_fused(p, q), qa_np, pa_np)
+
+
 def test_miller_f_fused_vs_jax_miller_loop():
     """The plain Miller kernel + 2 Frobenius steps and folds (rows 6-8)
     against the JAX package's CPU Miller loop (precompute interleaved with
     the fold, tape.py) and the port's prepared-G2 entry, precompute +
     miller_loop (rows 7, 8, 13, 14)."""
-    rng = random.Random(SEED + 3)
-    pa_np, qa_np = _affine_pairs([(rng.randrange(1, R), rng.randrange(1, R))
-                                  for _ in range(2)])
+    pa_np, qa_np, want = _jax_miller_case()
     pa, qa = convert.from_numpy((pa_np, qa_np), "cpu")
     got = P._miller_f_fused(qa, pa)
-    assert_same(got, on_tape(lambda q, p: tape._tape_miller_fused(p, q), qa_np, pa_np))
+    assert_same(got, want)
     assert_same(got, convert.to_numpy(P.miller_loop(P.precompute(qa), pa)))
+
+
+def test_team_miller_loop_vs_jax_miller_loop(monkeypatch):
+    """The fused Miller loop with the team Miller kernel's CPU model in
+    place of row 6 equals the JAX package's CPU Miller loop on the same
+    pairs (the tape of test_miller_f_fused_vs_jax_miller_loop)."""
+    pa_np, qa_np, want = _jax_miller_case()
+    monkeypatch.setattr(FU, "miller_precompute", TT.team_miller_precompute)
+    assert_same(P._miller_f_fused(*convert.from_numpy((qa_np, pa_np), "cpu")), want)
 
 
 def test_miller_loop_batch_golden():
@@ -383,3 +404,89 @@ def test_codec_and_errors_copies_equal_the_jax_package():
     assert outs == [run(PSC, PE, fn, b) for fn, b in cases]
     assert {"InvalidEncoding", "NotMemberCurveError", "NotMemberFieldError",
             "InvalidSliceLength", "InvalidU512Encoding"} <= set(o for o in outs if isinstance(o, str))
+
+
+# The Miller kernel's team schedule (team_schedule.py), run by the CPU
+# model of tests/test_torch_tower.py, against the plain versions.
+
+def _team_g2_rounds(step):
+    """The G2 part of a step's rounds: its products and combinations
+    without the square's and the fold's."""
+    from bn254_tpu_torch import team_schedule as TS
+    if step == "dbl":
+        parts = ((TS.DBL_R1_MULS, TS.DBL_R1_LINS), (TS.DBL_R2_MULS, TS.DBL_R2_LINS),
+                 (TS.DBL_R3_MULS, TS.DBL_R3_LINS))
+    else:
+        parts = ((TS.ADD_A1_MULS, TS.ADD_A1_LINS), (TS.ADD_A2_MULS, TS.ADD_A2_LINS),
+                 (TS.ADD_A3_MULS, TS.ADD_A3_LINS), (TS.ADD_A4_MULS, TS.ADD_A4_LINS))
+    return [TS.Round(m, c) for m, c in parts]
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2])
+def test_team_g2_step_rounds_equal_plain_steps(kind):
+    """The team doubling step (kind 0) and mixed addition against Q (1)
+    and -Q (2), split into their rounds: R' and the line (ell_0, ell_vv px,
+    ell_vw py) equal fused._dbl_step / _add_step's bit for bit, on
+    kernel_cases.residues inputs (0, 1, q - 1 in the first lanes)."""
+    from bn254_tpu_torch import team_schedule as TS
+    d = TT._team_inputs(SEED + 20 + kind)
+    st = TT.team_state(q=d["q"], p=d["p"], r=d["r"])
+    by = TS.SLOT["QN" if kind == 2 else "QY"]
+    for rnd in _team_g2_rounds("dbl" if kind == 0 else "add"):
+        TT.team_round(st, rnd, by)
+    r = d["r"].view(3, 2, 16, -1)
+    if kind == 0:
+        nr, c = FU._dbl_step(r)
+    else:
+        qx, qy = d["q"].view(2, 2, 16, -1)
+        nr, c = FU._add_step(r, torch.stack([qx, qy if kind == 1 else FU._neg(qy)]))
+    ell_0, ell_vw, ell_vv = c.unbind(0)
+    px, py = d["p"]
+    assert torch.equal(TT.team_slots(st, "RX", "RY", "RZ"), nr.reshape(6, 16, -1))
+    assert torch.equal(st[TS.SLOT["L0"]], ell_0)
+    assert torch.equal(torch.stack([st[TS.SLOT["L2"]], st[TS.SLOT["L4"]]]),
+                       MK._fq2_mul(torch.stack([ell_vv, ell_vw]),
+                                   torch.stack([torch.stack([px, torch.zeros_like(px)]),
+                                                torch.stack([py, torch.zeros_like(py)])])))
+
+
+@pytest.mark.parametrize("kinds", [(0,), (1,), (2,), (0, 1), (0, 2), (0, 0)])
+def test_team_miller_steps_equal_plain_steps(kinds):
+    """Whole team Miller steps (square, G2 step and fold interleaved in
+    their rounds, as step_rounds picks them: an addition after a doubling
+    step starts in that step's last round) equal the plain steps of
+    miller_precompute_plain."""
+    from bn254_tpu_torch import team_schedule as TS
+    d = TT._team_inputs(SEED + 23 + len(kinds) * 3 + kinds[-1])
+    st = TT.team_state(f=d["f"], q=d["q"], p=d["p"], r=d["r"])
+    f, r = d["f"].view(2, 3, 2, 16, -1), d["r"].view(3, 2, 16, -1)
+    qx, qy = d["q"].view(2, 2, 16, -1)
+    for i, kind in enumerate(kinds):
+        rounds, base = TS.step_rounds(kinds, i)
+        for j in rounds:
+            TT.team_round(st, TS.ROUNDS[j], TS.SLOT["QN" if base == 2 else "QY"])
+        if kind == 0:
+            f = FU._sqr12(f)
+            r, c = FU._dbl_step(r)
+        else:
+            r, c = FU._add_step(r, torch.stack([qx, qy if kind == 1 else FU._neg(qy)]))
+        f = FU._fold(f, c, *d["p"])
+    assert torch.equal(TT.team_slots(st, "F0", "F1", "F2", "F3", "F4", "F5"), f.reshape(12, 16, -1))
+    assert torch.equal(TT.team_slots(st, "RX", "RY", "RZ"), r.reshape(6, 16, -1))
+
+
+def test_team_miller_loop_equals_plain_version():
+    """The whole team Miller kernel, all 85 scheduled kinds, equals
+    miller_precompute_plain limb for limb on residue inputs with 0, 1 and
+    q - 1 in the first lanes (lane 0 all zeros, as to_affine gives an
+    infinity lane) and on real affine points."""
+    d = TT._team_inputs(SEED + 26, batch=8)
+    kinds = P._PRE_KINDS.reshape(-1, 1)
+    got, want = TT.team_miller_precompute(d["q"], d["p"], kinds), FU.miller_precompute_plain(
+        d["q"], d["p"], kinds)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    rng = random.Random(SEED + 27)
+    pa_np, qa_np = _affine_pairs([(rng.randrange(1, R), rng.randrange(1, R)) for _ in range(3)])
+    pa, qa = (convert.pack(t) for t in convert.from_numpy((pa_np, qa_np), "cpu"))
+    got, want = TT.team_miller_precompute(qa, pa, kinds), FU.miller_precompute_plain(qa, pa, kinds)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

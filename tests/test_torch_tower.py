@@ -224,6 +224,42 @@ def test_cyc_pow_bound_counts_lazy_fq2_products(label):
     assert nbytes == 10 * 24 * 64
 
 
+@pytest.mark.parametrize("label", ["miller_precompute", "fq12_mul"])
+def test_team_kernel_bounds_count_lazy_fq2_products(label):
+    """Rows 6 and 9's bounds count the Fq2 products the functions need: a
+    general one at 2.5 Montgomery products' work (lazy), a square or a
+    scaling by (px, 0), (py, 0) at 2.  A doubling step is 88.5: the Fq12
+    square's 12 products (30), the G2 step's 4 general products, 6
+    squares and 2 scalings (10 + 12 + 4) and the fold's 13 (32.5); an
+    addition step 68: 7 general products and 2 squares (17.5 + 4), e bx
+    and d by (5), 2 scalings (4), the fold (32.5), its first 2 in the
+    doubling step before it, as the kernel runs them.  An Fq12 product
+    is 18 at 2.5.  Their batches leave a block partly empty (16384 = 1638
+    Miller blocks of 10 lanes and 4) and row 9 runs below one warp's
+    five teams (B = 3)."""
+    from bn254_tpu_torch import kernel_cases as KC
+    from bn254_tpu_torch import team_schedule as TS
+    case = next(c for c in KC.CASES if c.label == label)
+    args = case.make_args(np.random.default_rng(SEED), 10, "cpu")
+    products, nbytes = case.work(*args)
+    if label == "fq12_mul":
+        assert (products, nbytes) == (10 * 45, 10 * 36 * 64)
+        assert min(case.batches) < 5
+    else:
+        kinds = np.asarray(args[2]).ravel()
+        assert [len(r.muls) for r in TS.ROUNDS] == [17, 4, 16, 18, 2, 6, 16, 4]
+        assert (int((kinds == 0).sum()), len(kinds)) == (64, 85)
+        assert sum(len(TS.ROUNDS[r].muls) for i in range(85)
+                   for r in TS.step_rounds(kinds, i)[0]) == 64 * 37 + 21 * 28
+        work = lambda rounds: sum(KC.fq2_mul_work(m) for r in rounds for m in TS.ROUNDS[r].muls)
+        assert (work(TS.DBL), work(TS.DBL_THEN_ADD + TS.ADD_AFTER_DBL)) == (88.5, 88.5 + 68)
+        assert [sum(KC.fq2_mul_work(m) == 2 for m in TS.ROUNDS[r].muls)
+                for r in TS.DBL + TS.ADD] == [4, 2, 2, 0, 4, 0, 0]
+        assert products == int(10 * (64 * 88.5 + 21 * 68))
+        assert nbytes == 10 * 24 * 64 + 4 * 85
+        assert 16384 in case.batches and 16384 % 10 == 4
+
+
 def test_final_exponentiation_vs_jax():
     rng = random.Random(SEED + 8)
     av = [_fq12(rng) for _ in range(3)]
@@ -320,3 +356,170 @@ def test_team_spelling_equals_plain_version(op):
     else:
         conj = FU._conj12(b.view(2, 3, 2, 16, -1)).reshape(12, 16, -1)
         assert torch.equal(team_fq12_mul(a, b, conj=True), FU.fq12_mul_plain(a, conj))
+
+
+# The Miller kernel's team schedule (bn254_tpu_torch/team_schedule.py,
+# csrc/fused.cu k_miller_precompute): rounds of Fq2 products, then linear
+# combinations, over a lane's Fq2 slots.  The model runs a round as the
+# six threads do after check_round: every task of a half reads the slots
+# as they were before the half, then all write.
+
+def _team_half_mod(x):
+    """The kernel's halving (fq12_team.cuh fq_half) on stored residues:
+    v/2 if v is even, else (v + q)/2."""
+    from bn254_tpu_torch import limbs as L
+    flat = x.reshape(-1, 16, x.shape[-1])
+    out = []
+    for t in flat:
+        vals = L._limbs_to_ints(t.numpy())
+        out.append(L._ints_to_limbs([(v + (Q if v & 1 else 0)) >> 1 for v in vals]))
+    return torch.from_numpy(np.stack(out).astype(np.int32)).reshape(x.shape)
+
+
+def team_lin(state, lin, by):
+    """As the kernel's team_lin: each sum its positive slots added, then
+    its negative slots subtracted; xi on b's sum; then the post step."""
+    from bn254_tpu_torch import team_schedule as TS
+    acc = torch.zeros_like(state[TS.SLOT["F0"]])
+    bp, bn, ap, an = ([by if i == TS.BY else i for i in ts] for ts in TS._split(lin))
+    for pos, neg, xi in ((bp, bn, True), (ap, an, False)):
+        for i in pos:
+            acc = FU._add(acc, state[i])
+        for i in neg:
+            acc = FU._sub(acc, state[i])
+        if xi and (pos or neg):
+            acc = FU._xi(acc)
+    if lin.post == TS.HALF:
+        acc = _team_half_mod(acc)
+    elif lin.post == TS.DOUBLE:
+        acc = FU._add(acc, acc)
+    return acc
+
+
+def team_round(state, rnd, by):
+    """One round on the slot list `state` (Fq2 tensors [2, 16, B]), in place;
+    the products are lazy Fq2 products, as the kernel's."""
+    from bn254_tpu_torch import team_schedule as TS
+    TS.check_round(rnd)
+    if rnd.muls:
+        x = torch.stack([team_lin(state, m.x, by) for m in rnd.muls])
+        y = torch.stack([team_lin(state, m.y, by) for m in rnd.muls])
+        for m, v in zip(rnd.muls, FU._fq2_mul_lazy(x, y)):
+            state[TS.SLOT[m.dst]] = v
+    new = [(c.dst, team_lin(state, c.lin, by)) for c in rnd.lins]
+    for dst, v in new:
+        state[TS.SLOT[dst]] = v
+
+
+def team_state(f=None, q=None, p=None, r=None):
+    """A lane state as the kernel's start writes it: f (default 1), R = (qx,
+    qy, 1) unless r is given, Q, -Q's y, (px, 0), (py, 0), b2; packed
+    tensors [12 / 4 / 2 / 6, 16, B]."""
+    from bn254_tpu_torch import team_schedule as TS
+    from bn254_tpu_torch.spec import constants as SC
+    like = next(t for t in (f, q, p, r) if t is not None)
+    batch = like.shape[-1]
+    one = FU._fq12_one(like[0])[0, 0]
+    zero = torch.zeros_like(one)
+    st = [zero] * TS.N_SLOTS
+    st[:6] = list(f.view(6, 2, 16, batch)) if f is not None else [one] + [zero] * 5
+    if q is not None:
+        qx, qy = q.view(2, 2, 16, batch)
+        st[9:12] = [qx, qy, FU._neg(qy)]
+        st[6:9] = [qx, qy, one]
+    if r is not None:
+        st[6:9] = list(r.view(3, 2, 16, batch))
+    if p is not None:
+        st[12:14] = [torch.stack([c, zero[0]]) for c in p]
+    st[TS.SLOT["B2"]] = torch.stack([FU._const(v, zero[0]) for v in SC.B2])
+    return st
+
+
+def team_slots(state, *names):
+    from bn254_tpu_torch import team_schedule as TS
+    return torch.stack([state[TS.SLOT[n]] for n in names]).reshape(2 * len(names), 16, -1)
+
+
+def team_miller_precompute(q, p, kinds):
+    """The whole team Miller kernel on the CPU: each step runs the rounds
+    team_schedule.step_rounds picks (doubling, addition against Q or -Q,
+    an addition's first round taken into the doubling step before it);
+    returns (f [12, 16, B], r [6, 16, B]) as fused.miller_precompute."""
+    from bn254_tpu_torch import team_schedule as TS
+    st = team_state(q=q, p=p)
+    kinds = np.asarray(kinds).ravel()
+    for i in range(len(kinds)):
+        rounds, base = TS.step_rounds(kinds, i)
+        for r in rounds:
+            team_round(st, TS.ROUNDS[r], TS.SLOT["QN" if base == 2 else "QY"])
+    return (team_slots(st, "F0", "F1", "F2", "F3", "F4", "F5"),
+            team_slots(st, "RX", "RY", "RZ"))
+
+
+def _team_inputs(seed, batch=16):
+    """kernel_cases.residues inputs (0, 1 and q - 1 in the first lanes of
+    every coordinate) for f, a G2 triple, a line, Q and P."""
+    from bn254_tpu_torch import kernel_cases as KC
+    rng = np.random.default_rng(seed)
+    return {k: KC.residues(rng, n, batch, "cpu")
+            for k, n in (("f", 12), ("r", 6), ("c", 6), ("q", 4), ("p", 2))}
+
+
+@pytest.mark.parametrize("index", range(8))
+def test_team_schedule_round_is_race_free(index):
+    """Every round of the Miller kernel's table passes check_round, fits
+    the kernel's passes, and the header holds it."""
+    from bn254_tpu_torch import team_schedule as TS
+    rnd = TS.ROUNDS[index]
+    TS.check_round(rnd)
+    assert 0 < len(rnd.muls) <= 18 and 0 < len(rnd.lins) <= 12
+    used = set().union(*(TS.reads(m.x) | TS.reads(m.y) | {m.dst} for m in rnd.muls),
+                       *(TS.reads(c.lin) | {c.dst} for c in rnd.lins))
+    assert all(s == TS.BY or s < TS.N_SLOTS for s, _ in map(TS.slot, used))
+    assert TS.header().count("#define BN254_MILLER_ROUNDS") == 1
+
+
+def test_team_schedule_refuses_a_race():
+    """check_round refuses a round whose task reads another's output."""
+    from bn254_tpu_torch import team_schedule as TS
+    bad = TS.Round((TS.Mul("P0", TS.A("F0"), TS.A("F1")), TS.Mul("P1", TS.A("P0"), TS.A("F1"))), ())
+    with pytest.raises(ValueError):
+        TS.check_round(bad)
+    with pytest.raises(ValueError):
+        TS.check_round(TS.Round((), (TS.Comb("F0", TS.A("P0")), TS.Comb("F0", TS.A("P1")))))
+
+
+def test_team_halving_equals_product_by_one_half():
+    """The kernel's halving of a stored residue is the Montgomery product
+    with 1/2 (fused._dbl_step's two_inv), on edge and random residues."""
+    from bn254_tpu_torch import limbs as L
+    x = _team_inputs(SEED + 10)["f"][:2]
+    two_inv = FU._const(pow(2, Q - 2, Q), x)
+    assert torch.equal(_team_half_mod(x), L.mont_mul(x, two_inv, MK.FQ_MOD))
+
+
+def test_team_square_equals_plain_version():
+    """The team Fq12 square (12 products, one round) equals
+    fq12_sqr_plain bit for bit."""
+    from bn254_tpu_torch import team_schedule as TS
+    f = _team_inputs(SEED + 11)["f"]
+    st = team_state(f=f)
+    team_round(st, TS.Round(TS.SQR_MULS, TS.SQR_LINS), 0)
+    assert torch.equal(team_slots(st, "F0", "F1", "F2", "F3", "F4", "F5"),
+                       FU.fq12_sqr_plain(f))
+
+
+def test_team_fold_equals_plain_version():
+    """The team 024 fold (13 products) of a line with its px, py
+    scalings taken as Fq2 products by (px, 0), (py, 0) equals
+    fq12_fold_line_plain bit for bit."""
+    from bn254_tpu_torch import team_schedule as TS
+    d = _team_inputs(SEED + 12)
+    st = team_state(f=d["f"], p=d["p"])
+    ell_0, ell_vw, ell_vv = d["c"].view(3, 2, 16, -1)
+    st[TS.SLOT["L0"]] = ell_0
+    st[TS.SLOT["L2"]], st[TS.SLOT["L4"]] = FU._fq2_mul_lazy(
+        torch.stack([ell_vv, ell_vw]), torch.stack([st[TS.SLOT["PX"]], st[TS.SLOT["PY"]]]))
+    team_round(st, TS.Round(TS.FOLD_MULS, TS.FOLD_LINS), 0)
+    assert torch.equal(team_slots(st, "F0", "F1", "F2", "F3", "F4", "F5"),
+                       FU.fq12_fold_line_plain(d["f"], d["c"], *d["p"]))
