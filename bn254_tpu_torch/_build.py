@@ -10,8 +10,9 @@ Field constants reach the kernels through ``_build/bn254_consts.h``,
 generated here from ``bn254_tpu_torch.spec.constants`` (the port's copy of
 the oracle) through the port's ``Mod``: the Fq modulus, -q^-1 mod 2^32,
 q^2 (16 words: the lazy Fq2 product's offset) and the Montgomery forms
-of 1, 1/2 and the twist coefficient b2, and the Miller kernel's team
-schedule (``team_schedule.header``).  (The Montgomery kernels take their
+of 1, 1/2 and the twist coefficient b2, the Frobenius factors of Fq12
+(``frob12_consts``), and the Miller kernel's team schedule
+(``team_schedule.header``).  (The Montgomery kernels take their
 modulus as an argument instead, so they serve Fr as well.)
 
 Every C entry returns ``cudaGetLastError()`` right after its launch;
@@ -32,6 +33,7 @@ import torch
 from . import counts, team_schedule
 from .limbs import Mod
 from .spec import constants as C
+from .spec import field as SF
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -66,6 +68,8 @@ _SIGS = {
     "chain_tower": "ipppi",      # op, a, b, out, chain
     "msm_bucket_sort": "pppiiii",   # digits, offsets, order, n, W, nb, signed
     "msm_bucket_reduce": "ippii",   # ncoords, buckets, out, W, nb
+    "fq12_inv": "pipp",          # inverse digits, n, a, out
+    "fq12_frob": "ipp",          # power (1-3, or 6: the conjugation), a, out
 }
 assert tuple(_SIGS) == counts.KERNELS
 
@@ -76,10 +80,22 @@ def _words(v: int, n: int = 8) -> str:
     return ", ".join(f"0x{(v >> (32 * j)) & 0xFFFFFFFF:08x}u" for j in range(n))
 
 
+def frob12_consts(power: int) -> list:
+    """The six Fq2 factors (canonical int pairs) of the Frobenius map of
+    Fq12 to the q^power (power 1-3), one a coefficient in the packed
+    order: tower.fq12_frob multiplies coefficient k of each half by
+    FROB6_C1 (k = 1) or FROB6_C2 (k = 2) and every coefficient of the
+    second half by FROB12_C1; the kernel multiplies once by their product."""
+    c6 = [SF.FQ2_ONE, C.FROB6_C1[power], C.FROB6_C2[power]]
+    return c6 + [SF.fq2_mul(c, C.FROB12_C1[power]) for c in c6]
+
+
 def consts_header() -> str:
     """The generated constants header (Montgomery forms, 32-bit words)."""
     fq = Mod(C.Q)
     mont = lambda v: (v % C.Q) * fq.r % C.Q
+    frob = ", ".join(_words(mont(x)) for p in (1, 2, 3) for c in frob12_consts(p)[1:]
+                     for x in c)
     return "\n".join([
         "// Generated by bn254_tpu_torch/_build.py from bn254_tpu_torch.spec.constants.",
         "#pragma once",
@@ -90,6 +106,7 @@ def consts_header() -> str:
         f"#define BN254_FQ_TWO_INV {_words(mont(pow(2, C.Q - 2, C.Q)))}",
         f"#define BN254_B2_C0 {_words(mont(C.B2[0]))}",
         f"#define BN254_B2_C1 {_words(mont(C.B2[1]))}",
+        f"#define BN254_FROB12 {frob}",
         team_schedule.header(),
     ])
 

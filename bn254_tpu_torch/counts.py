@@ -17,10 +17,11 @@ KERNELS = (
     "fq12_sqr", "g2_dbl_step", "glv_ladder",
     "fq2_mul_fused", "fq2_sqr_fused", "chain_mont", "chain_tower",
     "msm_bucket_sort", "msm_bucket_reduce",
+    "fq12_inv", "fq12_frob",
 )
 
 # The kernels each main path launches (chip_smoke.py asserts every one).
-PAIRING_PATH = KERNELS[:11]
+PAIRING_PATH = KERNELS[:11] + ("fq12_inv", "fq12_frob")   # the final exponentiation
 MSM_PATH = ("mont_mul", "mont_sqr", "fq2_mul", "fq2_sqr", "fq_pow",   # to_affine
             "point_add", "point_double",                          # Horner + lane fold
             "msm_bucket_sort", "msm_accumulate", "msm_bucket_reduce")   # row 19

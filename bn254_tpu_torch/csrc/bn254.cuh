@@ -15,9 +15,11 @@
 // Arithmetic.  Montgomery CIOS over 32-bit words with 64-bit accumulators
 // in plain C (each step one 32x32->64 multiply-add); every value is kept
 // fully reduced after each op, so the outputs are the JAX package's
-// canonical limbs bit for bit.  The one lazy-reduction op, fq2_mul_lazy
-// (two reductions of 512-bit products instead of three CIOS products),
-// also ends canonical; its bounds are stated beside it.
+// canonical limbs bit for bit.  The lazy-reduction ops, fq2_mul_lazy
+// (two reductions of 512-bit products instead of three CIOS products,
+// the Fq2 product of fq6_mul and the formulas above it) and fq_sqr (one
+// reduction of a 512-bit square), also end canonical; their bounds are
+// stated beside them.
 //
 // Code size.  Fq ops are forced inline; the Fq2 products and everything
 // above them are static __noinline__ functions taking references, so each
@@ -345,6 +347,67 @@ __device__ __forceinline__ void redc_wide(Fq& r, uint32_t t[16], const Modulus& 
   r = out;
 }
 
+// a^2 * 2^-256 mod q, canonical: the 512-bit square from its 36 distinct
+// word products (the 28 cross products once, then doubled, then the 8
+// squares on the diagonal) where a CIOS product takes 64, then the same
+// reduction as the lazy product (a^2 < q^2 < q * 2^256).
+__device__ __forceinline__ void fq_sqr(Fq& r, const Fq& a) {
+  uint32_t t[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = i + 1; j < 8; ++j) {
+      uint64_t s = (uint64_t)a.v[i] * a.v[j] + t[i + j] + c;
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    t[i + 8] = (uint32_t)c;  // not yet written by an earlier row
+  }
+  // the cross sum is below a^2 / 2 < 2^507: doubling loses no bit
+#pragma unroll
+  for (int j = 15; j > 0; --j) t[j] = (t[j] << 1) | (t[j - 1] >> 31);
+  t[0] <<= 1;
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint64_t d = (uint64_t)a.v[i] * a.v[i];
+    uint64_t s = (uint64_t)t[2 * i] + (uint32_t)d + c;
+    t[2 * i] = (uint32_t)s;
+    s = (uint64_t)t[2 * i + 1] + (uint32_t)(d >> 32) + (s >> 32);
+    t[2 * i + 1] = (uint32_t)s;
+    c = s >> 32;
+  }
+  redc_wide(r, t, fq_modulus());
+}
+
+// a^e over fused.py's pow_digits(e), the same digits for every lane: a
+// table of the odd powers a, a^3, ..., a^15 (one square, seven products),
+// res = a^d[0], then per further digit a square and, where d != 0 (odd),
+// a product by a^d.  A window of 4 bits: about 51 products for a 254-bit
+// exponent where the binary ladder takes one a set bit (109 for q - 2).
+// The table is indexed by the digit, so it lives in local memory.
+struct PowDigits { const int32_t* d; int n; };
+constexpr int kPowTable = 8;
+
+static __device__ __noinline__ void fq_pow_chain(Fq& r, const Fq& a, PowDigits e) {
+  Fq table[kPowTable], a2;
+  table[0] = a;
+  fq_sqr(a2, a);
+#pragma unroll 1
+  for (int i = 1; i < kPowTable; ++i) fq_mul(table[i], table[i - 1], a2);
+  Fq res = table[e.d[0] >> 1];
+#pragma unroll 1
+  for (int i = 1; i < e.n; ++i) {
+    fq_sqr(res, res);
+    const int d = e.d[i];
+    if (d) fq_mul(res, res, table[d >> 1]);
+  }
+  r = res;
+}
+
 __device__ __forceinline__ Fq2 fq2_mul_lazy_inl(const Fq2& a, const Fq2& b) {
   const Modulus m = fq_modulus();
   const uint32_t q_squared[16] = {BN254_FQ_Q_SQUARED};
@@ -400,6 +463,19 @@ static __device__ __noinline__ void fq2_mul_by_xi(Fq2& r, const Fq2& a) {
   r = fq2_mul_by_xi_inl(a);
 }
 
+// norm inversion (fq2.rs:119-130): (a0 t, -a1 t), t = (a0^2 + a1^2)^(q-2)
+// on the pow chain with inv = pow_digits(q - 2); 0 -> 0 without a branch
+static __device__ __noinline__ void fq2_inv(Fq2& r, const Fq2& a, PowDigits inv) {
+  Fq s0, s1, t, c1;
+  fq_sqr(s0, a.c0);
+  fq_sqr(s1, a.c1);
+  fq_add(t, s0, s1);
+  fq_pow_chain(t, t, inv);
+  fq_mul(r.c0, a.c0, t);
+  fq_mul(c1, a.c1, t);
+  fq_neg(r.c1, c1);
+}
+
 // ---------------------------------------------------------------------------
 // Fq6 = Fq2[v]/(v^3 - xi)
 // ---------------------------------------------------------------------------
@@ -419,16 +495,16 @@ static __device__ __noinline__ void fq6_mul_by_nonresidue(Fq6& r, const Fq6& a) 
   r.c0 = c0; r.c1 = c1; r.c2 = c2;
 }
 
-// Devegili et al. interpolation (fq6.rs:194-208): 6 Fq2 products
+// Devegili et al. interpolation (fq6.rs:194-208): 6 lazy Fq2 products
 static __device__ __noinline__ void fq6_mul(Fq6& r, const Fq6& a, const Fq6& b) {
   Fq2 a_a, b_b, c_c, s, t, u, c0, c1, c2;
-  fq2_mul(a_a, a.c0, b.c0);
-  fq2_mul(b_b, a.c1, b.c1);
-  fq2_mul(c_c, a.c2, b.c2);
+  fq2_mul_lazy(a_a, a.c0, b.c0);
+  fq2_mul_lazy(b_b, a.c1, b.c1);
+  fq2_mul_lazy(c_c, a.c2, b.c2);
 
   fq2_add(s, a.c1, a.c2);
   fq2_add(t, b.c1, b.c2);
-  fq2_mul(u, s, t);
+  fq2_mul_lazy(u, s, t);
   fq2_sub(u, u, b_b);
   fq2_sub(u, u, c_c);
   fq2_mul_by_xi(u, u);
@@ -436,7 +512,7 @@ static __device__ __noinline__ void fq6_mul(Fq6& r, const Fq6& a, const Fq6& b) 
 
   fq2_add(s, a.c0, a.c1);
   fq2_add(t, b.c0, b.c1);
-  fq2_mul(u, s, t);
+  fq2_mul_lazy(u, s, t);
   fq2_sub(u, u, a_a);
   fq2_sub(u, u, b_b);
   fq2_mul_by_xi(s, c_c);
@@ -444,11 +520,61 @@ static __device__ __noinline__ void fq6_mul(Fq6& r, const Fq6& a, const Fq6& b) 
 
   fq2_add(s, a.c0, a.c2);
   fq2_add(t, b.c0, b.c2);
-  fq2_mul(u, s, t);
+  fq2_mul_lazy(u, s, t);
   fq2_sub(u, u, a_a);
   fq2_add(u, u, b_b);
   fq2_sub(c2, u, c_c);
   r.c0 = c0; r.c1 = c1; r.c2 = c2;
+}
+
+// CH-SQR2 squaring (fq6.rs:163-177): 3 Fq2 squares, 2 lazy products
+static __device__ __noinline__ void fq6_sqr(Fq6& r, const Fq6& a) {
+  Fq2 s0, s1, s2, s3, s4, t, c0, c1, c2;
+  fq2_sqr(s0, a.c0);
+  fq2_mul_lazy(s1, a.c0, a.c1);
+  fq2_add(s1, s1, s1);
+  fq2_sub(t, a.c0, a.c1);
+  fq2_add(t, t, a.c2);
+  fq2_sqr(s2, t);
+  fq2_mul_lazy(s3, a.c1, a.c2);
+  fq2_add(s3, s3, s3);
+  fq2_sqr(s4, a.c2);
+  fq2_mul_by_xi(t, s3);
+  fq2_add(c0, s0, t);
+  fq2_mul_by_xi(t, s4);
+  fq2_add(c1, s1, t);
+  fq2_add(c2, s1, s2);
+  fq2_add(c2, c2, s3);
+  fq2_sub(c2, c2, s0);
+  fq2_sub(c2, c2, s4);
+  r.c0 = c0; r.c1 = c1; r.c2 = c2;
+}
+
+// (fq6.rs:179-192): 3 Fq2 squares, 9 lazy products and the norm's
+// fq2_inv; 0 -> 0 without a branch
+static __device__ __noinline__ void fq6_inv(Fq6& r, const Fq6& a, PowDigits inv) {
+  Fq2 c0, c1, c2, t, u;
+  fq2_sqr(c0, a.c0);
+  fq2_mul_by_xi(t, a.c2);
+  fq2_mul_lazy(t, a.c1, t);
+  fq2_sub(c0, c0, t);
+  fq2_sqr(c1, a.c2);
+  fq2_mul_by_xi(c1, c1);
+  fq2_mul_lazy(t, a.c0, a.c1);
+  fq2_sub(c1, c1, t);
+  fq2_sqr(c2, a.c1);
+  fq2_mul_lazy(t, a.c0, a.c2);
+  fq2_sub(c2, c2, t);
+  fq2_mul_lazy(t, a.c2, c1);
+  fq2_mul_lazy(u, a.c1, c2);
+  fq2_add(t, t, u);
+  fq2_mul_by_xi(t, t);
+  fq2_mul_lazy(u, a.c0, c0);
+  fq2_add(t, t, u);
+  fq2_inv(t, t, inv);
+  fq2_mul_lazy(r.c0, t, c0);
+  fq2_mul_lazy(r.c1, t, c1);
+  fq2_mul_lazy(r.c2, t, c2);
 }
 
 // ---------------------------------------------------------------------------
@@ -482,6 +608,23 @@ static __device__ __noinline__ void fq12_sqr(Fq12& r, const Fq12& a) {
   fq6_mul_by_nonresidue(s, ab);
   fq6_sub(c0, m, s);
   fq6_add(c1, ab, ab);
+  r.c0 = c0; r.c1 = c1;
+}
+
+// (fq12.rs:305-313): 2 Fq6 squares, the Fq6 inverse, 2 Fq6 products;
+// 0 -> 0 without a branch
+static __device__ __noinline__ void fq12_inv(Fq12& r, const Fq12& a, PowDigits inv) {
+  Fq6 s0, s1, t, c0, c1;
+  fq6_sqr(s0, a.c0);
+  fq6_sqr(s1, a.c1);
+  fq6_mul_by_nonresidue(s1, s1);
+  fq6_sub(t, s0, s1);
+  fq6_inv(t, t, inv);
+  fq6_mul(c0, a.c0, t);
+  fq6_mul(c1, a.c1, t);
+  fq2_neg(c1.c0, c1.c0);
+  fq2_neg(c1.c1, c1.c1);
+  fq2_neg(c1.c2, c1.c2);
   r.c0 = c0; r.c1 = c1;
 }
 

@@ -1,18 +1,22 @@
 // Fused tower-op kernels (queue rows 5-11, 13-16), replacing the
-// bn254_tpu/pallas_fused.py kernels named beside each one below.
+// bn254_tpu/pallas_fused.py kernels named beside each one below, and the
+// final exponentiation's Fq12 inverse and Frobenius maps (k_fq12_inv,
+// k_fq12_frob), which replace tower glue around row 3 on the TPU's path.
 //
 // Two designs.  One thread a lane (rows 5, 7, 8, 10, 13-16: k_fq_pow,
 // k_g2_add_step, k_fq12_fold_line, k_fq12_cyc_sqr, k_fq12_sqr,
-// k_g2_dbl_step, k_fq2_mul_fused, k_fq2_sqr_fused): 128-thread blocks, the
+// k_g2_dbl_step, k_fq2_mul_fused, k_fq2_sqr_fused; and k_fq12_inv;
+// k_fq12_frob runs one thread a coefficient): 128-thread blocks, the
 // ragged edge masked; a kernel reads its operands once, runs the whole
 // formula with every intermediate on the thread's registers and stack, and
 // writes its result once, as the TPU kernels keep theirs in VMEM.  Bound:
-// integer multiply-adds (an Fq12 product is 54 Montgomery products, about
-// 7,000 32x32->64 multiply-adds) and the local-memory traffic of the tower
+// integer multiply-adds (an Fq12 square is 12 lazy Fq2 products, about
+// 4,000 32x32->64 multiply-adds) and the local-memory traffic of the tower
 // state (f alone is 12 Fq = 96 words, past what the register file gives one
 // thread, and the __noinline__ tower functions pass their arguments through
-// the stack): ptxas gives fq_pow 40 registers and no stack, the one-thread
-// Fq12 kernels 138-236 registers and 1-3 KB stack frames.
+// the stack): ptxas gives fq_pow 48 registers and 288 bytes of stack (its
+// table), the one-thread Fq12 kernels 138-236 registers and 1-3 KB stack
+// frames (k_fq12_inv 214 and 1,952 B), k_fq12_frob 86 and none.
 //
 // A team of six threads of one warp a lane (rows 6, 9, 11: k_miller_
 // precompute, k_fq12_mul, k_fq12_cyc_pow; fq12_team.cuh), five lanes to a
@@ -40,20 +44,75 @@ using namespace bn254;
 
 namespace {
 
-// pallas_fused.py _pow_call_impl("fq_pow"): res = a; per digit square,
-// then multiply by a on a set bit.
+// pallas_fused.py _pow_call_impl("fq_pow"), which runs the binary ladder:
+// here bn254.cuh fq_pow_chain, a 4-bit sliding window over digits the
+// host computes (fused.py pow_digits) and a dedicated square (fq_sqr,
+// 36 word products where a CIOS product takes 64).  One thread a lane: a
+// chain cannot be split, so the kernel is bound by the dependent products
+// of one lane (operations): 253 squares and 55 products for q - 2, 255.9
+// products' work (kernel_cases.pow_chain_work), where the binary ladder
+// ran 253 squares and 109 products.
 __global__ void k_fq_pow(const int32_t* __restrict__ digits, int n,
                          const int32_t* __restrict__ a, int32_t* __restrict__ out, int B) {
   int lane = lane_index();
   if (lane >= B) return;
-  Fq base, res;
-  load(base, a, 0, B, lane);
-  res = base;
-  for (int i = 0; i < n; ++i) {
-    fq_mul(res, res, res);
-    if (digits[i]) fq_mul(res, res, base);
+  Fq x;
+  load(x, a, 0, B, lane);
+  fq_pow_chain(x, x, PowDigits{digits, n});
+  store(out, 0, B, lane, x);
+}
+
+// tower.fq12_inv (fq12.rs:305-313), the final exponentiation's inverse:
+// on the TPU it is tower glue around row 3's Fq2 product (about 15,000
+// tensor ops a call in the port's plain spelling); here one thread a lane
+// runs the whole function (bn254.cuh fq12_inv: 2 Fq6 squares, the Fq6
+// inverse with the norm's Fermat inverse on fq_pow's chain, 2 Fq6
+// products, lazy Fq2 products throughout).  Bound by its operations: 340
+// products' work a lane (kernel_cases.FQ12_INV_PRODUCTS and
+// pow_chain_work), 255.9 of them the serial chain; 0 maps to 0.
+__global__ void k_fq12_inv(const int32_t* __restrict__ digits, int n,
+                           const int32_t* __restrict__ a, int32_t* __restrict__ out, int B) {
+  int lane = lane_index();
+  if (lane >= B) return;
+  Fq12 x;
+  load(x, a, B, lane);
+  fq12_inv(x, x, PowDigits{digits, n});
+  store(out, B, lane, x);
+}
+
+// tower.fq12_frob (fq12.rs:112-119) for powers 1-3, and power 6, the
+// conjugation (fq12.rs:126): glue around row 3 on the TPU.  Six threads a
+// lane, one per Fq2 coefficient k (blockIdx.y), 128 lanes a block, so a
+// warp reads one coefficient of 32 neighbouring lanes (coalesced).  For
+// power p, coefficient k is conj^p(a_k) times one constant, the product
+// of the FROB6_C1/C2 and FROB12_C1 factors the tuple code applies one
+// after the other (_build.frob12_consts; k = 0 takes none); the
+// conjugation negates coefficients 3-5.  Bound by its bytes: each
+// coefficient read once and written once.
+static __constant__ uint32_t kFrob12[3 * 5 * 16] = {BN254_FROB12};
+
+__global__ void k_fq12_frob(int power, const int32_t* __restrict__ a,
+                            int32_t* __restrict__ out, int B) {
+  const int lane = lane_index(), k = blockIdx.y;
+  if (lane >= B) return;
+  Fq2 v;
+  load(v, a, 2 * k, B, lane);
+  if (power == 6) {
+    if (k >= 3) fq2_neg(v, v);
+  } else {
+    if (power & 1) fq_neg(v.c1, v.c1);
+    if (k) {
+      const uint32_t* c = kFrob12 + ((power - 1) * 5 + k - 1) * 16;
+      Fq2 w;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        w.c0.v[j] = c[j];
+        w.c1.v[j] = c[8 + j];
+      }
+      v = fq2_mul_lazy_inl(v, w);
+    }
   }
-  store(out, 0, B, lane, res);
+  store(out, 2 * k, B, lane, v);
 }
 
 // Team geometry (fq12_team.cuh): thread k of team t of warp v holds
@@ -306,6 +365,17 @@ extern "C" {
 int bn254_fq_pow(const int32_t* digits, int n, const int32_t* a, int32_t* out, int B,
                  cudaStream_t stream) {
   BN254_LAUNCH(k_fq_pow, digits, n, a, out);
+}
+
+int bn254_fq12_inv(const int32_t* digits, int n, const int32_t* a, int32_t* out, int B,
+                   cudaStream_t stream) {
+  BN254_LAUNCH(k_fq12_inv, digits, n, a, out);
+}
+
+int bn254_fq12_frob(int power, const int32_t* a, int32_t* out, int B, cudaStream_t stream) {
+  k_fq12_frob<<<dim3((B + BN254_THREADS - 1) / BN254_THREADS, 6), BN254_THREADS, 0, stream>>>(
+      power, a, out, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int bn254_miller_precompute(const int32_t* kinds, int n, const int32_t* p, const int32_t* q,

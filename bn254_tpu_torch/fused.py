@@ -21,6 +21,8 @@ GLV ladder's digits differ per lane, an int32 [nsteps, B] array.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -64,6 +66,36 @@ def _naf_digits(e: int) -> np.ndarray:
 
 BINARY_Z = _msb_bits(C.Z)      # 62 digits, 27 multiplies: any Fq12
 NAF_Z = _naf_digits(C.Z)       # 62 digits, 23 multiplies: cyclotomic only
+
+POW_WINDOW = 4                 # fq_pow's table: the 8 odd powers a, a^3, ..., a^15
+POW_TABLE = 1 << (POW_WINDOW - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def pow_digits(e: int) -> np.ndarray:
+    """Sliding-window digits of e >= 1, MSB first -> read-only [n, 1] i32:
+    digit 0 is the leading window, then one digit a bit, 0 or odd and
+    below 2^POW_WINDOW, nonzero digits at least POW_WINDOW bits apart.
+    The chain (k_fq_pow, fq_pow_plain): res = a^d0, then per digit a
+    square and, where d != 0, a product by a^d from the table."""
+    if e < 1:
+        raise ValueError(f"pow_digits: want e >= 1, got {e}")
+    d = []
+    while e:
+        x = e & ((1 << POW_WINDOW) - 1) if e & 1 else 0
+        d.append(x)
+        e = (e - x) >> 1
+    out = np.array(d[::-1], dtype=np.int32).reshape(-1, 1)
+    out.flags.writeable = False
+    return out
+
+
+def pow_chain_counts(e: int) -> tuple:
+    """(squares, products) of pow_digits(e)'s chain: the table's square
+    and 7 products, then a square a digit after the first and a product a
+    nonzero one."""
+    d = pow_digits(e).ravel()
+    return len(d), POW_TABLE - 1 + int((d[1:] != 0).sum())
 
 _DIGITS = {}
 
@@ -173,6 +205,83 @@ def _conj12(a):
     return _s(a0, _neg(a1), dim=-5)
 
 
+def _pow_chain(a, e: int):
+    """a^e on pow_digits(e)'s chain, k_fq_pow's order: a [..., 16, B]."""
+    d = pow_digits(e).ravel()
+    a2 = L.mont_sqr(a, _F)
+    table = [a]
+    for _ in range(POW_TABLE - 1):
+        table.append(L.mont_mul(table[-1], a2, _F))
+    res = table[d[0] >> 1]
+    for x in d[1:]:
+        res = L.mont_sqr(res, _F)
+        if x:
+            res = L.mont_mul(res, table[x >> 1], _F)
+    return res
+
+
+def _const2(pair, like):
+    """An Fq2 constant (canonical ints) broadcast like [..., 2, 16, B]."""
+    return _s(_const(pair[0], like[..., 0, :, :]), _const(pair[1], like[..., 0, :, :]), dim=-3)
+
+
+def _inv2(a):
+    """Norm inversion (tower.fq2_inv, fq2.rs:119-130) on the pow chain."""
+    s0, s1 = L.mont_sqr(a, _F).unbind(-3)
+    t = _pow_chain(_add(s0, s1), C.Q - 2)
+    c0, c1 = L.mont_mul(a, _s(t, t, dim=-3), _F).unbind(-3)
+    return _s(c0, _neg(c1), dim=-3)
+
+
+def _sqr6(a):
+    """CH-SQR2 squaring (fq6.rs:163-177), the JAX tower.fq6_sqr."""
+    a0, a1, a2 = a.unbind(-4)
+    s0, s2, s4 = MK._fq2_sqr(_s(a0, _add(_sub(a0, a1), a2), a2)).unbind(-4)
+    ab, bc = MK._fq2_mul(_s(a0, a1), _s(a1, a2)).unbind(-4)
+    s1, s3 = _add(_s(ab, bc), _s(ab, bc)).unbind(-4)
+    xs3, xs4 = _xi(_s(s3, s4)).unbind(-4)
+    c0, c1 = _add(_s(s0, s1), _s(xs3, xs4)).unbind(-4)
+    c2 = _sub(_sub(_add(_add(s1, s2), s3), s0), s4)
+    return _s(c0, c1, c2)
+
+
+def _inv6(a):
+    """Fq6 inverse (fq6.rs:179-192), the JAX tower.fq6_inv; 0 -> 0."""
+    a0, a1, a2 = a.unbind(-4)
+    q0, q2, q1 = MK._fq2_sqr(_s(a0, a2, a1)).unbind(-4)
+    p0, p1, p2 = MK._fq2_mul(_s(a1, a0, a0), _s(_xi(a2), a1, a2)).unbind(-4)
+    c0, c1, c2 = _sub(_s(q0, _xi(q2), q1), _s(p0, p1, p2)).unbind(-4)
+    r1, r2, r0 = MK._fq2_mul(_s(a2, a1, a0), _s(c1, c2, c0)).unbind(-4)
+    t = _inv2(_add(_xi(_add(r1, r2)), r0))
+    return MK._fq2_mul(_s(t, t, t), _s(c0, c1, c2))
+
+
+def _inv12(a):
+    """(tower.fq12_inv, fq12.rs:305-313); 0 -> 0."""
+    s0, s1 = _sqr6(a).unbind(-5)
+    t = _inv6(_sub(s0, _nonres6(s1)))
+    c0, c1 = _mul6(a, _s(t, t, dim=-5)).unbind(-5)
+    return _s(c0, _neg(c1), dim=-5)
+
+
+def _frob12(a, power: int):
+    """tower.fq12_frob (fq12.rs:112-119; fq6.rs:125-131; fq2.rs:59-68):
+    each Fq2 conjugated on odd powers, c1 and c2 of each half times
+    FROB6_C1/C2, then the second half times FROB12_C1.  Power 6 is the
+    conjugation (fq12.rs:126)."""
+    if power == CONJ:
+        return _conj12(a)
+    x = a
+    if power % 2:
+        x0, x1 = a.unbind(-3)
+        x = _s(x0, _neg(x1), dim=-3)
+    h0, h1, h2 = x.unbind(-4)
+    y1, y2 = MK._fq2_mul(_s(h1, h2), _s(_const2(C.FROB6_C1[power], h1),
+                                        _const2(C.FROB6_C2[power], h2))).unbind(-4)
+    f0, f1 = _s(h0, y1, y2).unbind(-5)
+    return _s(f0, MK._fq2_mul(f1, _const2(C.FROB12_C1[power], f1)), dim=-5)
+
+
 def _mul_by_024(a, x0, x2, x4):
     """Sparse line product (tower.fq12_mul_by_024, fq12.rs:130-196): the 13
     Fq2 products in one call."""
@@ -267,12 +376,19 @@ def _fq12_one(like):
 
 def fq_pow_plain(a, e: int):
     counts.plain_calls["fq_pow"] += 1
-    res = a
-    for bit in _msb_bits(e).ravel():
-        res = L.mont_sqr(res, _F)
-        if bit:
-            res = L.mont_mul(res, a, _F)
-    return res
+    return _pow_chain(a, e)
+
+
+def fq12_inv_plain(a):
+    counts.plain_calls["fq12_inv"] += 1
+    batch = a.shape[-1]
+    return _inv12(a.view(2, 3, 2, N, batch)).reshape(12, N, batch)
+
+
+def fq12_frob_plain(a, power: int):
+    counts.plain_calls["fq12_frob"] += 1
+    batch = a.shape[-1]
+    return _frob12(a.view(2, 3, 2, N, batch), power).reshape(12, N, batch)
 
 
 def miller_precompute_plain(q, p, kinds):
@@ -643,21 +759,57 @@ def msm_point_words(points):
 # ---------------------------------------------------------------------------
 
 def fq_pow(a, e: int):
-    """a^e for a static exponent e >= 1, one whole-ladder kernel: MSB-first,
-    leading bit dropped, a multiply only on set bits.  a: [16, B] Fq.
-    Kernel: csrc/fused.cu k_fq_pow, replacing pallas_fused.py
+    """a^e for a static exponent e >= 1, one whole-chain kernel over
+    pow_digits(e) (a 4-bit sliding window).  a: [16, B] Fq.  Kernel:
+    csrc/fused.cu k_fq_pow, replacing pallas_fused.py
     _pow_call_impl("fq_pow")."""
-    assert e >= 1
-    bits = _msb_bits(e)
-    if len(bits) == 0:
+    if e == 1:
         return a
+    digits = pow_digits(e)
     if not on_cuda(a):
         return fq_pow_plain(a, e)
     batch = a.shape[-1]
     check("fq_pow", batch, a.device, (a, ()))
     out = torch.empty_like(a)
-    launch("fq_pow", batch, _digits_on(bits, a.device).data_ptr(), len(bits),
+    launch("fq_pow", batch, _digits_on(digits, a.device).data_ptr(), len(digits),
            a.data_ptr(), out.data_ptr())
+    return out
+
+
+def fq12_inv(a):
+    """Fq12 inverse [12, 16, B] (fq12.rs:305-313); 0 maps to 0.  Kernel:
+    csrc/fused.cu k_fq12_inv, one thread a lane, the norm's Fermat inverse
+    on fq_pow's chain: the final exponentiation's inverse, which the
+    JAX package runs as tower glue around pallas_kernels.py's fq2_mul."""
+    if not on_cuda(a):
+        return fq12_inv_plain(a)
+    batch = a.shape[-1]
+    check("fq12_inv", batch, a.device, (a, (12,)))
+    digits = pow_digits(C.Q - 2)
+    out = torch.empty_like(a)
+    launch("fq12_inv", batch, _digits_on(digits, a.device).data_ptr(), len(digits),
+           a.data_ptr(), out.data_ptr())
+    return out
+
+
+CONJ = 6                        # a^(q^6), the conjugation w -> -w of Fq12
+FROB_POWERS = (1, 2, 3, CONJ)
+
+
+def fq12_frob(a, power: int):
+    """a^(q^power) of [12, 16, B] for power 1, 2, 3 (fq12.rs:112-119) or
+    CONJ (fq12.rs:126).  Kernel: csrc/fused.cu k_fq12_frob, one thread a
+    Fq2 coefficient, one product by a constant each: the final
+    exponentiation's Frobenius maps and conjugations, which the JAX package
+    runs as tower glue around pallas_kernels.py's fq2_mul."""
+    if power not in FROB_POWERS:
+        raise ValueError(f"fq12_frob: power must be one of {FROB_POWERS}, got {power}")
+    if not on_cuda(a):
+        return fq12_frob_plain(a, power)
+    batch = a.shape[-1]
+    check("fq12_frob", batch, a.device, (a, (12,)))
+    out = torch.empty_like(a)
+    launch("fq12_frob", batch, power, a.data_ptr(), out.data_ptr())
     return out
 
 

@@ -302,22 +302,44 @@ def _io(b, coords_in_out: int):
     return coords_in_out * FQ_BYTES * b
 
 
-# Montgomery products per lane of the one-thread device formulas
-# (csrc/bn254.cuh, csrc/groups.cuh; rows 7, 8, 13, 14 and the group law):
-# an Fq2 product is 3, an Fq2 square 2.
-_FQ12_SQR, _G2_DBL_STEP, _G2_ADD_STEP, _FOLD = 36, 28, 37, 43
-_ADD = {1: 16, 2: 43}          # unified add, generic formula (no double)
-_DBL = {1: 7, 2: 16}
-_MADD = {1: 11, 2: 30}
-
-# The lazy Fq2 product (row 15) does 3 wide 256x256 products and 2
-# Montgomery reductions, where a CIOS product is one of each at about half
-# its instructions apiece: 2.5 products' work.  bench_tower.py's OPS (and
-# the probes' G Fq-products/s) count it as 3; its bound counts 2.5.
+# Every bound counts the Montgomery products' work that the function
+# needs, whatever spelling its kernel runs (an Fq product is 1):
+# - an Fq square, FQ_SQR_PRODUCTS: bn254.cuh fq_sqr's 36 word products
+#   (28 cross products, doubled, and 8 on the diagonal) and the 72 of the
+#   reduction, where a CIOS product does 64 and 72;
+# - a general Fq2 product, FQ2_MUL_LAZY_PRODUCTS: the lazy product (row
+#   15) does 3 wide 256x256 products and 2 Montgomery reductions, where a
+#   CIOS product is one of each at about half its instructions apiece.
+#   bench_tower.py's OPS (and the probes' G Fq-products/s) count it as 3;
+# - an Fq2 square, 2 (the complex square's two products), and an Fq2
+#   scaled by an Fq, 2.
+FQ_SQR_PRODUCTS = (36 + 72) / (64 + 72)
 FQ2_MUL_LAZY_PRODUCTS = 2.5
-# Fq2 products of the team kernels (csrc/fq12_team.cuh, all lazy): 6 a
-# Granger-Scott square, 18 an Fq12 product (rows 9, 11)
+FQ2_SQR_PRODUCTS = _FQ2_SCALE = 2
+_MUL = {1: 1, 2: FQ2_MUL_LAZY_PRODUCTS}        # by coordinates: Fq, Fq2
+_SQR = {1: FQ_SQR_PRODUCTS, 2: FQ2_SQR_PRODUCTS}
+
+# The group law (csrc/groups.cuh, the same formulas over Fq and Fq2):
+# unified add (generic formula, no double) 11 products and 5 squares,
+# dbl-2009-l 2 and 5, the mixed add 8 and 3
+_ADD = {c: 11 * _MUL[c] + 5 * _SQR[c] for c in (1, 2)}
+_DBL = {c: 2 * _MUL[c] + 5 * _SQR[c] for c in (1, 2)}
+_MADD = {c: 8 * _MUL[c] + 3 * _SQR[c] for c in (1, 2)}
+# The one-thread tower and line formulas (csrc/bn254.cuh; rows 7, 8, 10,
+# 13, 14): an Fq12 square 12 Fq2 products (its 2 Fq6 products), the G2
+# doubling step 4 products, 6 squares and 2 scalings, the addition step
+# 11 products and 2 squares, the fold 13 products and 2 scalings; the
+# team kernels (csrc/fq12_team.cuh, rows 9, 11): 6 Fq2 products a
+# Granger-Scott square, 18 an Fq12 product
+_FQ12_SQR = 12 * FQ2_MUL_LAZY_PRODUCTS
+_G2_DBL_STEP = 4 * FQ2_MUL_LAZY_PRODUCTS + 6 * FQ2_SQR_PRODUCTS + 2 * _FQ2_SCALE
+_G2_ADD_STEP = 11 * FQ2_MUL_LAZY_PRODUCTS + 2 * FQ2_SQR_PRODUCTS
+_FOLD = 13 * FQ2_MUL_LAZY_PRODUCTS + 2 * _FQ2_SCALE
 _CYC_SQR_FQ2, _FQ12_MUL_FQ2 = 6, 18
+
+
+def _per_lane(work: float, t) -> int:
+    return int(work * _lanes(t))
 
 
 def _w_mont(a, b, mod):
@@ -325,21 +347,49 @@ def _w_mont(a, b, mod):
 
 
 def _w_mont_sqr(a, mod):
-    return _lanes(a), _io(_lanes(a), 2)
+    return _per_lane(FQ_SQR_PRODUCTS, a), _io(_lanes(a), 2)
+
+
+def pow_chain_work(e: int) -> float:
+    """The chain the kernel runs for e (fused.pow_chain_counts), each
+    square at FQ_SQR_PRODUCTS: 253 squares and 55 products for q - 2,
+    255.9 products' work, where the binary ladder's 253 squares and 109
+    products need 309.9."""
+    squares, products = FU.pow_chain_counts(e)
+    return squares * FQ_SQR_PRODUCTS + products
 
 
 def _w_fq_pow(a, e):
-    bits = FU._msb_bits(e)
-    return _lanes(a) * (len(bits) + int(bits.sum())), _io(_lanes(a), 2)
+    return _per_lane(pow_chain_work(e), a), _io(_lanes(a), 2)
+
+
+# Montgomery products' work of the Fq12 inverse apart from the Fermat
+# chain (bn254.cuh fq12_inv): 2 Fq6 squares (3 Fq2 squares + 2 products:
+# 11 each), the Fq6 inverse without its norm's inverse (3 squares + 9
+# products: 28.5), the Fq2 norm (2 Fq squares) and its 2 scalings, 2 Fq6
+# products (6 products: 15 each)
+FQ12_INV_PRODUCTS = 2 * 11 + 28.5 + 2 * FQ_SQR_PRODUCTS + 2 + 2 * 15
+
+
+def _w_fq12_inv(a):
+    return _per_lane(FQ12_INV_PRODUCTS + pow_chain_work(C.Q - 2), a), _io(_lanes(a), 24)
+
+
+def _w_fq12_frob(a, power):
+    """A lazy product by a constant on coefficients 1-5 (none for the
+    conjugation); bound by its bytes either way."""
+    products = 0 if power == FU.CONJ else 5 * FQ2_MUL_LAZY_PRODUCTS
+    return _per_lane(products, a), _io(_lanes(a), 24)
 
 
 def fq2_mul_work(m) -> float:
     """Montgomery products' work that the function needs for one of the
-    team schedule's Fq2 products: 2 for a square (both operands one sum)
-    and for a scaling by (px, 0) or (py, 0), FQ2_MUL_LAZY_PRODUCTS for a
-    general product, whatever spelling the kernel gives it."""
-    if m.x == m.y or TS.A("PX") in (m.x, m.y) or TS.A("PY") in (m.x, m.y):
-        return 2
+    team schedule's Fq2 products: a square (both operands one sum), a
+    scaling by (px, 0) or (py, 0), or a general product."""
+    if m.x == m.y:
+        return FQ2_SQR_PRODUCTS
+    if TS.A("PX") in (m.x, m.y) or TS.A("PY") in (m.x, m.y):
+        return _FQ2_SCALE
     return FQ2_MUL_LAZY_PRODUCTS
 
 
@@ -364,14 +414,14 @@ def glv_work(ncoords, pts, digits):
     (0, 1, 0) needs no product)."""
     steps, b = digits.shape
     products = steps * b * _DBL[ncoords] + int((digits != 0).sum()) * _ADD[ncoords]
-    return products, _io(b, 12 * ncoords) + 4 * steps * b
+    return int(products), _io(b, 12 * ncoords) + 4 * steps * b
 
 
 def msm_work(ncoords, points, digits, nb, signed, lanes):
     W, n = digits.shape
     products = (int((digits != 0).sum()) * _MADD[ncoords]
                 + W * lanes * (nb - 1) * 2 * _ADD[ncoords])
-    return products, (_io(n, 2 * ncoords) + 4 * W * n + _io(W * lanes, 3 * ncoords))
+    return int(products), (_io(n, 2 * ncoords) + 4 * W * n + _io(W * lanes, 3 * ncoords))
 
 
 def sort_work(digits, nb, signed, lanes):
@@ -382,15 +432,24 @@ def sort_work(digits, nb, signed, lanes):
 
 def reduce_work(ncoords, buckets):
     W, nb1, _, _, lanes = buckets.shape
-    return (W * lanes * nb1 * 2 * _ADD[ncoords],
+    return (int(W * lanes * nb1 * 2 * _ADD[ncoords]),
             _io(W * lanes, 3 * ncoords * (nb1 + 1)))
+
+
+# Montgomery products' work of one op of each probe, as the bounds count
+# it (PB.OPS keeps bench_tower.py's eager count for the G Fq-products/s)
+_PROBE_WORK = {
+    "mul": 1, "sqr": FQ_SQR_PRODUCTS, "fq_mul": 1,
+    "fq2_mul": FQ2_MUL_LAZY_PRODUCTS, "fq2_sqr": FQ2_SQR_PRODUCTS,
+    "fq6_mul": 6 * FQ2_MUL_LAZY_PRODUCTS, "fq12_sqr": _FQ12_SQR,
+    "fq12_mul": _FQ12_MUL_FQ2 * FQ2_MUL_LAZY_PRODUCTS,
+    "cyclo_sqr": _CYC_SQR_FQ2 * FQ2_MUL_LAZY_PRODUCTS,
+}
 
 
 def body_products(variant) -> float:
     """Fq products' work of one op of a probe, as its bound counts it."""
-    if variant in PB.MONT_IMPLS:
-        return 1
-    return FQ2_MUL_LAZY_PRODUCTS if variant == "fq2_mul" else PB.OPS[variant][1]
+    return _PROBE_WORK[variant]
 
 
 def probe_work(variant, a, b, chain):
@@ -413,6 +472,7 @@ _MK_CU = "bn254_tpu_torch/csrc/mont_kernels.cu"
 _FU_CU = "bn254_tpu_torch/csrc/fused.cu"
 _GR_CU = "bn254_tpu_torch/csrc/groups.cu"
 _PR_CU = "bn254_tpu_torch/csrc/probes.cu"
+_FINAL_EXP_BATCHES = (16384, 1000, 3, 1)
 
 CASES = (
     KernelCase("mont_mul", "mont_mul[fq]", _MK_CU, f"{_PK}:239", MK.mont_mul, L.mont_mul,
@@ -426,11 +486,12 @@ CASES = (
     KernelCase("mont_sqr", "mont_sqr[fr]", _MK_CU, f"{_PK}:247", MK.mont_sqr, L.mont_sqr,
                lambda rng, b, d: (residues(rng, 1, b, d, FR_MOD)[0], FR_MOD), _w_mont_sqr),
     KernelCase("fq2_mul", "fq2_mul", _MK_CU, f"{_PK}:175", MK.fq2_mul, MK.fq2_mul_plain,
-               _fq((2, 2)), lambda a, b: (3 * _lanes(a), _io(_lanes(a), 6))),
+               _fq((2, 2)), lambda a, b: (_per_lane(FQ2_MUL_LAZY_PRODUCTS, a), _io(_lanes(a), 6))),
     KernelCase("fq2_sqr", "fq2_sqr", _MK_CU, f"{_PK}:181", MK.fq2_sqr, MK.fq2_sqr_plain,
-               _fq((2,)), lambda a: (2 * _lanes(a), _io(_lanes(a), 4))),
+               _fq((2,)), lambda a: (_per_lane(FQ2_SQR_PRODUCTS, a), _io(_lanes(a), 4))),
     KernelCase("fq_pow", "fq_pow", _FU_CU, f"{_PF}:1253", FU.fq_pow, FU.fq_pow_plain,
-               lambda rng, b, d: (residues(rng, 1, b, d)[0], C.Q - 2), _w_fq_pow),
+               lambda rng, b, d: (residues(rng, 1, b, d)[0], C.Q - 2), _w_fq_pow,
+               batches=_FINAL_EXP_BATCHES),
     # 16384 = 1638 blocks of 10 lanes and 4: the last block partly empty
     KernelCase("miller_precompute", "miller_precompute", _FU_CU, f"{_PF}:1395",
                FU.miller_precompute, FU.miller_precompute_plain,
@@ -438,20 +499,20 @@ CASES = (
                                   _PRE_KINDS.reshape(-1, 1)), _w_miller),
     KernelCase("g2_add_step", "g2_add_step", _FU_CU, f"{_PF}:1151", FU.g2_add_step,
                FU.g2_add_step_plain, _fq((6, 4)),
-               lambda r, base: (_G2_ADD_STEP * _lanes(r), _io(_lanes(r), 22))),
+               lambda r, base: (_per_lane(_G2_ADD_STEP, r), _io(_lanes(r), 22))),
     KernelCase("fq12_fold_line", "fq12_fold_line", _FU_CU, f"{_PF}:1029",
                FU.fq12_fold_line, FU.fq12_fold_line_plain,
                lambda rng, b, d: (residues(rng, 12, b, d), residues(rng, 6, b, d),
                                   *residues(rng, 2, b, d)),
-               lambda f, c, px, py: (_FOLD * _lanes(f), _io(_lanes(f), 32))),
+               lambda f, c, px, py: (_per_lane(_FOLD, f), _io(_lanes(f), 32))),
     KernelCase("fq12_mul", "fq12_mul", _FU_CU, f"{_PF}:1022", FU.fq12_mul,
                FU.fq12_mul_plain, _fq((12, 12)),
-               lambda a, b: (int(_FQ12_MUL_FQ2 * FQ2_MUL_LAZY_PRODUCTS * _lanes(a)),
+               lambda a, b: (_per_lane(_FQ12_MUL_FQ2 * FQ2_MUL_LAZY_PRODUCTS, a),
                              _io(_lanes(a), 36)),
                batches=(16384, 1000, 3)),      # 3: fewer lanes than a warp's 5 teams
     KernelCase("fq12_cyc_sqr", "fq12_cyc_sqr", _FU_CU, f"{_PF}:1027", FU.fq12_cyc_sqr,
                FU.fq12_cyc_sqr_plain, _fq((12,)),
-               lambda a: (18 * _lanes(a), _io(_lanes(a), 24))),
+               lambda a: (_per_lane(_CYC_SQR_FQ2 * FQ2_MUL_LAZY_PRODUCTS, a), _io(_lanes(a), 24))),
     KernelCase("fq12_cyc_pow", "fq12_cyc_pow[naf]", _FU_CU, f"{_PF}:1267", FU.fq12_cyc_pow,
                FU.fq12_cyc_pow_plain,
                lambda rng, b, d: (residues(rng, 12, b, d), FU.NAF_Z), _w_cyc_pow),
@@ -460,11 +521,11 @@ CASES = (
                lambda rng, b, d: (residues(rng, 12, b, d), FU.BINARY_Z), _w_cyc_pow),
     *(KernelCase("point_add", f"point_add[g{nc}]", _GR_CU, f"{_PF}:789", FU.point_add,
                  FU.point_add_plain, _points_args(nc, True),
-                 lambda ncoords, p, q: (_ADD[ncoords] * _lanes(p), _io(_lanes(p), 9 * ncoords)))
+                 lambda ncoords, p, q: (_per_lane(_ADD[ncoords], p), _io(_lanes(p), 9 * ncoords)))
       for nc in (1, 2)),
     *(KernelCase("point_double", f"point_double[g{nc}]", _GR_CU, f"{_PF}:769",
                  FU.point_double, FU.point_double_plain, _points_args(nc, False),
-                 lambda ncoords, p: (_DBL[ncoords] * _lanes(p), _io(_lanes(p), 6 * ncoords)))
+                 lambda ncoords, p: (_per_lane(_DBL[ncoords], p), _io(_lanes(p), 6 * ncoords)))
       for nc in (1, 2)),
     *(KernelCase("msm_accumulate", f"msm_accumulate[g{nc}{',skew' * skew}]", _GR_CU,
                  f"{_PF}:1635", FU.msm_accumulate, FU.msm_accumulate_plain,
@@ -473,20 +534,20 @@ CASES = (
       for nc, skew in ((1, False), (2, False), (1, True))),
     KernelCase("fq12_sqr", "fq12_sqr", _FU_CU, f"{_PF}:1025", FU.fq12_sqr,
                FU.fq12_sqr_plain, _fq((12,)),
-               lambda a: (_FQ12_SQR * _lanes(a), _io(_lanes(a), 24))),
+               lambda a: (_per_lane(_FQ12_SQR, a), _io(_lanes(a), 24))),
     KernelCase("g2_dbl_step", "g2_dbl_step", _FU_CU, f"{_PF}:1145", FU.g2_dbl_step,
                FU.g2_dbl_step_plain, _fq((6,)),
-               lambda r: (_G2_DBL_STEP * _lanes(r), _io(_lanes(r), 18))),
+               lambda r: (_per_lane(_G2_DBL_STEP, r), _io(_lanes(r), 18))),
     *(KernelCase("glv_ladder", f"glv_ladder[g{nc}]", _GR_CU, f"{_PF}:1760", FU.glv_ladder,
                  FU.glv_ladder_plain, lambda rng, b, d, nc=nc: glv_args(rng, nc, b, d),
                  glv_work)
       for nc in (1, 2)),
     KernelCase("fq2_mul_fused", "fq2_mul_fused", _FU_CU, f"{_PF}:990", FU.fq2_mul,
                FU.fq2_mul_lazy_plain, fq2_extremes,
-               lambda a, b: (int(FQ2_MUL_LAZY_PRODUCTS * _lanes(a)), _io(_lanes(a), 6))),
+               lambda a, b: (_per_lane(FQ2_MUL_LAZY_PRODUCTS, a), _io(_lanes(a), 6))),
     KernelCase("fq2_sqr_fused", "fq2_sqr_fused", _FU_CU, f"{_PF}:990", FU.fq2_sqr,
                FU.fq2_sqr_fused_plain, lambda rng, b, d: fq2_extremes(rng, b, d)[:1],
-               lambda a: (2 * _lanes(a), _io(_lanes(a), 4))),
+               lambda a: (_per_lane(FQ2_SQR_PRODUCTS, a), _io(_lanes(a), 4))),
     *(KernelCase("chain_mont", f"chain_mont[{impl}]", _PR_CU, "scripts/bench_mont.py:39",
                  PB.chain_mont, PB.chain_mont_plain, probe_args("chain_mont", impl, 64),
                  probe_work, batches=(32768, 1000))
@@ -504,6 +565,15 @@ CASES = (
                  FU.msm_bucket_reduce, FU.msm_bucket_reduce_plain, reduce_args(nc),
                  reduce_work, batches=(16384, 5000))
       for nc in (1, 2)),
+    # the final exponentiation's inverse and Frobenius maps, glue around
+    # row 3 on the TPU; B = 1 is pairing_batch's final exponentiation
+    KernelCase("fq12_inv", "fq12_inv", _FU_CU, f"{_PK}:175", FU.fq12_inv, FU.fq12_inv_plain,
+               _fq((12,)), _w_fq12_inv, batches=_FINAL_EXP_BATCHES),
+    *(KernelCase("fq12_frob", f"fq12_frob[{'conj' if p == FU.CONJ else p}]", _FU_CU,
+                 f"{_PK}:175", FU.fq12_frob, FU.fq12_frob_plain,
+                 lambda rng, b, d, p=p: (residues(rng, 12, b, d), p), _w_fq12_frob,
+                 batches=_FINAL_EXP_BATCHES)
+      for p in FU.FROB_POWERS),
 )
 
 

@@ -12,7 +12,9 @@ calls the port's kernel wrapper (which takes the plain version on the
 CPU): ``fq2_mul``/``fq2_sqr`` (rows 3-4), ``fq12_mul`` (row 9),
 ``fq12_cyclotomic_sqr`` (row 10), the cyclotomic z-ladders (row 11) and
 ``fq12_sqr`` (row 13); ``fq2_sqrt``'s fixed-exponent powers are Python
-loops over the row 3-4 kernels.
+loops over the row 3-4 kernels.  ``fq12_inv``, ``fq12_frob`` and
+``fq12_conj``, tower glue on the TPU, are kernels of their own here, and
+the final exponentiation runs on packed tensors from kernel to kernel.
 The rest composes them with plain tensor adds, as the JAX package
 composes them with jnp.
 """
@@ -105,10 +107,6 @@ def fq2_conj(a):
     return (a[0], F.neg(a[1]))
 
 
-def fq2_frob(a, power: int):
-    return a if power % 2 == 0 else fq2_conj(a)
-
-
 def fq2_is_zero(a):
     return F.is_zero(a[0]) & F.is_zero(a[1])
 
@@ -185,87 +183,6 @@ def fq6_ones(batch, device):
             fq2_zeros(batch, device))
 
 
-def fq6_add(a, b):
-    return tuple(fq2_add(x, y) for x, y in zip(a, b))
-
-
-def fq6_sub(a, b):
-    return tuple(fq2_sub(x, y) for x, y in zip(a, b))
-
-
-def fq6_neg(a):
-    return tuple(fq2_neg(x) for x in a)
-
-
-def fq6_scale(a, k2):
-    """Scale by an Fq2 batch (fq6.rs:117-123)."""
-    return tuple(fq2_mul(x, k2) for x in a)
-
-
-def fq6_mul_by_nonresidue(a):
-    """v * (c0 + c1 v + c2 v^2) = xi c2 + c0 v + c1 v^2 (fq6.rs:109-115)."""
-    return (fq2_mul_by_xi(a[2]), a[0], a[1])
-
-
-def fq6_mul(a, b):
-    """Devegili et al. interpolation mul (fq6.rs:194-208): 6 Fq2 muls."""
-    a_a = fq2_mul(a[0], b[0])
-    b_b = fq2_mul(a[1], b[1])
-    c_c = fq2_mul(a[2], b[2])
-    c0 = fq2_add(
-        fq2_mul_by_xi(fq2_sub(fq2_sub(
-            fq2_mul(fq2_add(a[1], a[2]), fq2_add(b[1], b[2])), b_b), c_c)),
-        a_a)
-    c1 = fq2_add(
-        fq2_sub(fq2_sub(fq2_mul(fq2_add(a[0], a[1]), fq2_add(b[0], b[1])),
-                        a_a), b_b),
-        fq2_mul_by_xi(c_c))
-    c2 = fq2_sub(
-        fq2_add(fq2_sub(fq2_mul(fq2_add(a[0], a[2]), fq2_add(b[0], b[2])),
-                        a_a), b_b),
-        c_c)
-    return (c0, c1, c2)
-
-
-def fq6_sqr(a):
-    """CH-SQR2 squaring (fq6.rs:163-177)."""
-    s0 = fq2_sqr(a[0])
-    ab = fq2_mul(a[0], a[1])
-    s1 = fq2_add(ab, ab)
-    s2 = fq2_sqr(fq2_add(fq2_sub(a[0], a[1]), a[2]))
-    bc = fq2_mul(a[1], a[2])
-    s3 = fq2_add(bc, bc)
-    s4 = fq2_sqr(a[2])
-    return (
-        fq2_add(s0, fq2_mul_by_xi(s3)),
-        fq2_add(s1, fq2_mul_by_xi(s4)),
-        fq2_sub(fq2_sub(fq2_add(fq2_add(s1, s2), s3), s0), s4),
-    )
-
-
-def fq6_inv(a):
-    """(fq6.rs:179-192); 0 -> 0 branchlessly."""
-    c0 = fq2_sub(fq2_sqr(a[0]), fq2_mul(a[1], fq2_mul_by_xi(a[2])))
-    c1 = fq2_sub(fq2_mul_by_xi(fq2_sqr(a[2])), fq2_mul(a[0], a[1]))
-    c2 = fq2_sub(fq2_sqr(a[1]), fq2_mul(a[0], a[2]))
-    t = fq2_inv(fq2_add(
-        fq2_mul_by_xi(fq2_add(fq2_mul(a[2], c1), fq2_mul(a[1], c2))),
-        fq2_mul(a[0], c0)))
-    return (fq2_mul(t, c0), fq2_mul(t, c1), fq2_mul(t, c2))
-
-
-def fq6_frob(a, power: int):
-    """(fq6.rs:125-131) with the precomputed xi-power tables."""
-    batch, device = a[0][0].shape[-1], a[0][0].device
-    return (
-        fq2_frob(a[0], power),
-        fq2_mul(fq2_frob(a[1], power),
-                fq2_const(C.FROB6_C1[power % 6], batch, device)),
-        fq2_mul(fq2_frob(a[2], power),
-                fq2_const(C.FROB6_C2[power % 6], batch, device)),
-    )
-
-
 def fq6_select(mask, a, b):
     return tuple(fq2_select(mask, x, y) for x, y in zip(a, b))
 
@@ -299,24 +216,18 @@ def fq12_sqr(a):
 
 
 def fq12_inv(a):
-    """(fq12.rs:305-313); 0 -> 0 branchlessly."""
-    t = fq6_inv(fq6_sub(fq6_sqr(a[0]), fq6_mul_by_nonresidue(fq6_sqr(a[1]))))
-    return (fq6_mul(a[0], t), fq6_neg(fq6_mul(a[1], t)))
+    """(fq12.rs:305-313); 0 -> 0 branchlessly: the fq12_inv kernel."""
+    return unpack_fq12(FU.fq12_inv(pack(a)))
 
 
 def fq12_conj(a):
-    """Unitary inverse (fq12.rs:126)."""
-    return (a[0], fq6_neg(a[1]))
+    """Unitary inverse (fq12.rs:126): the fq12_frob kernel's conjugation."""
+    return unpack_fq12(FU.fq12_frob(pack(a), FU.CONJ))
 
 
 def fq12_frob(a, power: int):
-    """(fq12.rs:112-119)."""
-    batch, device = a[0][0][0].shape[-1], a[0][0][0].device
-    return (
-        fq6_frob(a[0], power),
-        fq6_scale(fq6_frob(a[1], power),
-                  fq2_const(C.FROB12_C1[power % 12], batch, device)),
-    )
+    """(fq12.rs:112-119), power 1, 2 or 3: the fq12_frob kernel."""
+    return unpack_fq12(FU.fq12_frob(pack(a), power))
 
 
 def fq12_select(mask, a, b):
@@ -402,48 +313,66 @@ def fq12_exp_by_neg_z(a):
     return fq12_conj(fq12_cyclotomic_pow_z(a))
 
 
+def _exp_by_neg_z_unitary(x):
+    """fq12_exp_by_neg_z_unitary on a packed [12, 16, B] Fq12."""
+    return FU.fq12_frob(FU.fq12_cyc_pow(x, FU.NAF_Z), FU.CONJ)
+
+
 def fq12_exp_by_neg_z_unitary(a):
     """exp_by_neg_z for inputs known to lie in the cyclotomic subgroup
     G_phi6(q^2) — every call site inside the final exponentiation.  The
     NAF ladder (23 multiplies; digit -1 multiplies by the conjugate, the
     free inverse there).  NOT valid for arbitrary Fq12."""
-    return fq12_conj(unpack_fq12(FU.fq12_cyc_pow(pack(a), FU.NAF_Z)))
+    return unpack_fq12(_exp_by_neg_z_unitary(pack(a)))
+
+
+def final_exp_easy(x):
+    """The easy part (conj(a) / a)^(q^2 + 1) on a packed [12, 16, B] Fq12:
+    the inverse, the conjugation, a Frobenius map and two products."""
+    c = FU.fq12_mul(FU.fq12_frob(x, FU.CONJ), FU.fq12_inv(x))
+    return FU.fq12_mul(FU.fq12_frob(c, 2), c)
+
+
+def final_exp_hard(f):
+    """The hard part (Scott et al.) on a packed cyclotomic [12, 16, B] Fq12:
+    three NAF z-ladders, three cyclotomic squares, nine products, three
+    Frobenius maps and three conjugations (besides the ladders' three)."""
+    mul, frob, cyc_sqr = FU.fq12_mul, FU.fq12_frob, FU.fq12_cyc_sqr
+    a_ = _exp_by_neg_z_unitary(f)
+    b = cyc_sqr(a_)
+    c2 = cyc_sqr(b)
+    d = mul(c2, b)
+
+    e = _exp_by_neg_z_unitary(d)
+    f2 = cyc_sqr(e)
+    g = _exp_by_neg_z_unitary(f2)
+    h = frob(d, FU.CONJ)
+    i = frob(g, FU.CONJ)
+
+    j = mul(i, e)
+    k = mul(j, h)
+    l = mul(k, b)
+    m = mul(k, e)
+    n = mul(f, m)
+
+    o = frob(l, 1)
+    p = mul(o, n)
+
+    q = frob(k, 2)
+    r = mul(q, p)
+
+    s = frob(f, FU.CONJ)
+    t = mul(s, l)
+    u = frob(t, 3)
+    return mul(u, r)
 
 
 def fq12_final_exponentiation(a):
-    """Easy chunk + Scott et al. hard chunk (fq12.rs:62-110).
+    """Easy chunk + Scott et al. hard chunk (fq12.rs:62-110), on one packed
+    [12, 16, B] tensor from the input to the output: every step is a
+    kernel wrapper (fq12_inv, fq12_frob, fq12_mul, fq12_cyc_sqr,
+    fq12_cyc_pow).
 
     Branchless: a non-invertible (zero) input yields 0, never produced by
     the Miller loop."""
-    inv = fq12_inv(a)
-    c = fq12_mul(fq12_conj(a), inv)
-    f = fq12_mul(fq12_frob(c, 2), c)
-
-    a_ = fq12_exp_by_neg_z_unitary(f)
-    b = fq12_cyclotomic_sqr(a_)
-    c2 = fq12_cyclotomic_sqr(b)
-    d = fq12_mul(c2, b)
-
-    e = fq12_exp_by_neg_z_unitary(d)
-    f2 = fq12_cyclotomic_sqr(e)
-    g = fq12_exp_by_neg_z_unitary(f2)
-    h = fq12_conj(d)
-    i = fq12_conj(g)
-
-    j = fq12_mul(i, e)
-    k = fq12_mul(j, h)
-    l = fq12_mul(k, b)
-    m = fq12_mul(k, e)
-    n = fq12_mul(f, m)
-
-    o = fq12_frob(l, 1)
-    p = fq12_mul(o, n)
-
-    q = fq12_frob(k, 2)
-    r = fq12_mul(q, p)
-
-    s = fq12_conj(f)
-    t = fq12_mul(s, l)
-    u = fq12_frob(t, 3)
-    v = fq12_mul(u, r)
-    return v
+    return unpack_fq12(final_exp_hard(final_exp_easy(pack(a))))

@@ -7,14 +7,15 @@ decompression, once on one NVIDIA GPU and check them.
 
 Phases (any failure raises, so the exit code is not 0):
 
-1. Print the card (nvidia-smi name and power limit), build the
-   twenty-three CUDA kernels from bn254_tpu_torch/csrc/ and print the
-   build's seconds and ptxas's registers and stack of the MSM kernels and
-   of the three kernels that run a team of six threads a lane
+1. Print the card (nvidia-smi name and power limit), build every CUDA
+   kernel of counts.KERNELS (twenty-five) from bn254_tpu_torch/csrc/ and
+   print the build's seconds and ptxas's registers and stack of the MSM
+   kernels, of the three kernels that run a team of six threads a lane
    (csrc/fq12_team.cuh): the cyclotomic ladder (row 11), the Miller
-   kernel (row 6) and the Fq12 product (row 9); every other kernel runs
-   one thread a lane (every entry's numbers stay in
-   bn254_tpu_torch/_build/build.log).
+   kernel (row 6) and the Fq12 product (row 9), and of the Fermat chain
+   (row 5) and the final exponentiation's Fq12 inverse and Frobenius maps;
+   every other kernel runs one thread a lane (every entry's numbers stay
+   in bn254_tpu_torch/_build/build.log).
 2. Kernel vs plain version: each kernel on CUDA tensors made from a seed
    (bn254_tpu_torch/kernel_cases.py: field residues with 0, 1 and q - 1
    in the first lanes; real G1/G2 points with the group law's edge lanes;
@@ -25,11 +26,13 @@ Phases (any failure raises, so the exit code is not 0):
    planted coincide and P + (-P) lanes; the lazy Fq2 product's column
    extremes; the probes at their scripts' batches, 32768 and 8192) at
    B = 16384 and at a ragged B = 1000 (n = 5000 for the MSM kernels; the
-   Fq12 product also at B = 3, fewer lanes than a warp's five teams),
-   against its plain PyTorch version on the same tensors.  Tolerance 0:
-   these are integers.  The first variant of each kernel (Fq, NAF, G1,
-   mul, fq_mul, signed), fq12_cyc_pow's binary digits (TPU row 12) and
-   the skewed MSM timed at the main batch (CUDA events; the plain version
+   Fq12 product also at B = 3, fewer lanes than a warp's five teams; the
+   Fermat chain, the Fq12 inverse and each Frobenius map also at B = 3
+   and at pairing_batch's B = 1), against its plain PyTorch version on
+   the same tensors.  Tolerance 0: these are integers.  The first variant
+   of each kernel (Fq, NAF, G1, mul, fq_mul, signed, Frobenius power 1),
+   fq12_cyc_pow's binary digits (TPU row 12), the conjugation and the
+   skewed MSM timed at the main batch (CUDA events; the plain version
    once), beside the bound its inputs give; the Miller kernel's line
    also gives the min and max of its 10 timed calls.
 3. Main path, with every launch and plain-call counter reset first:
@@ -37,12 +40,17 @@ Phases (any failure raises, so the exit code is not 0):
    bench.py makes them, 8 lanes checked against the spec pairing; the
    golden pair through ``pairing_batch``; ``pairing_batch`` on 5 pairs
    with two infinity pairs against the spec; and an ECPAIRING-style check
-   e(aP, bQ) * e(-ab P, Q) = 1.  Then every kernel must have launched and
-   no plain version may have run.
+   e(aP, bQ) * e(-ab P, Q) = 1.  Then every kernel must have launched
+   (the final exponentiation's Fq12 inverse and Frobenius maps among
+   them) and no plain version may have run.
 4. Timing: pairings/s of ``pairing`` at B = 16384 and the time of each of
    its layers on its own: to_affine, Miller loop (without the infinity
-   select) and final exponentiation (CUDA events, mean of 3 after a
-   warm-up).
+   select) and final exponentiation, split into its easy part (the
+   inverse, the conjugation, a Frobenius map, two products) and its hard
+   part (CUDA events, mean of 3 after a warm-up).  Then one pairing call
+   under torch.profiler: its count of CUDA kernels (and of copies) and
+   the device-busy share, the union of their device intervals over the
+   call's span.
 5. MSM path, with the counters reset first: ``msm`` over G1 at n = 2^20
    and over G2 at n = 2^16, points P_i = (i + 1) G built on the card by
    doubling the batch with point_add, random scalars from a numpy seed,
@@ -117,9 +125,10 @@ N_MAIN = 16384
 N_RAGGED = 1000
 SEED = 7
 ROW_12 = "fq12_cyc_pow[binary]"     # TPU row 12: row 11's kernel on binary digits
-TIMED = (ROW_12, "msm_accumulate[g1,skew]")   # timed beside each kernel's first variant
+# timed beside each kernel's first variant
+TIMED = (ROW_12, "msm_accumulate[g1,skew]", "fq12_frob[conj]")
 PTXAS = ("k_msm_bucket_sort", "k_msm_accumulate", "k_msm_bucket_reduce", "k_fq12_cyc_pow",
-         "k_miller_precompute", "k_fq12_mul")
+         "k_miller_precompute", "k_fq12_mul", "k_fq_pow", "k_fq12_inv", "k_fq12_frob")
 SPREAD = ("miller_precompute",)     # also the min and max of the timed reps (row 6)
 
 
@@ -326,22 +335,62 @@ def phase_main_path(dev, ps, qs):
     return check_launches("pairing", counts.PAIRING_PATH, launches, plain)
 
 
+def device_busy(fn):
+    """One call of fn under torch.profiler -> (CUDA kernels, copies and
+    sets, device-busy share: the union of their device intervals over the
+    span of every event).  Fails where the trace holds no device event: on
+    the card that means the profiler did not trace it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    device = sorted((e.time_range.start, e.time_range.end) for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    require(device, "torch.profiler traced no device event in a call on the card")
+    copies = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                 and ("Memcpy" in e.name or "Memset" in e.name))
+    busy, (cur_s, cur_e) = 0.0, device[0]
+    for s, e in device[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s = s
+        cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events))
+    return len(device) - copies, copies, busy / span
+
+
 def phase_timing(dev, ps, qs, card):
-    """pairings/s at N_MAIN and the split into the path's three layers."""
+    """pairings/s at N_MAIN, the split into the path's three layers and of
+    the final exponentiation into its easy and hard parts, and one call's
+    device-busy share."""
     from bn254_tpu_torch import groups as G
     from bn254_tpu_torch import pairing as P
     from bn254_tpu_torch import tower as T
+    from bn254_tpu_torch.convert import pack
 
     g1 = G.encode_points(G.G1, ps, dev)
     g2 = G.encode_points(G.G2, qs, dev)
     total_ms = cuda_ms(lambda: P.pairing(g1, g2), 3)
     (pa, _), (qa, _) = G.to_affine(G.G1, g1), G.to_affine(G.G2, g2)
     f = P._miller_f_fused(qa, pa)
+    x = pack(f)
+    easy = T.final_exp_easy(x)
     split = (cuda_ms(lambda: (G.to_affine(G.G1, g1), G.to_affine(G.G2, g2)), 3),
              cuda_ms(lambda: P._miller_f_fused(qa, pa), 3),
-             cuda_ms(lambda: T.fq12_final_exponentiation(f), 3))
+             cuda_ms(lambda: T.fq12_final_exponentiation(f), 3),
+             cuda_ms(lambda: T.final_exp_easy(x), 3),
+             cuda_ms(lambda: T.final_exp_hard(easy), 3))
     print(f"pairing B={N_MAIN}: {total_ms:.2f} ms = {N_MAIN / total_ms * 1e3:.0f} pairings/s; "
           f"to_affine {split[0]:.2f} ms, Miller {split[1]:.2f} ms, final exp {split[2]:.2f} ms "
+          f"(easy part {split[3]:.2f} ms, hard part {split[4]:.2f} ms) [{card}]", flush=True)
+    busy = device_busy(lambda: P.pairing(g1, g2))
+    print(f"pairing B={N_MAIN} under torch.profiler: {busy[0]} CUDA kernels and {busy[1]} "
+          f"copies or sets a call, device busy {100 * busy[2]:.1f} % of the call's span "
           f"[{card}]", flush=True)
 
 
@@ -878,7 +927,8 @@ def main():
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
     _build.library()
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"kernel build ({len(counts.KERNELS)} kernels): {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for line in ptxas_lines((_build.BUILD_DIR / "build.log").read_text(), PTXAS):
         print(line, flush=True)
 

@@ -269,8 +269,8 @@ def test_all_infinity_batch_is_identity():
 def test_main_path_reaches_every_kernel_with_valid_arguments(monkeypatch):
     """The main path with the wrappers taking their kernel branch on CPU
     tensors and the launch stubbed out: every wrapper's device, dtype,
-    shape and contiguity check passes, each of the path's eleven kernels is
-    reached, and no plain version runs (what chip_smoke.py asserts on the
+    shape and contiguity check passes, each of the path's thirteen kernels
+    is reached, and no plain version runs (what chip_smoke.py asserts on the
     card).  Batches 1 to 5 cover the product reduction's odd tails."""
     def launch(name, batch, *args):
         counts.launches[name] += 1
@@ -291,6 +291,8 @@ def test_main_path_reaches_every_kernel_with_valid_arguments(monkeypatch):
     assert not any(counts.plain_calls.values())
     assert counts.launches["miller_precompute"] == 6
     assert counts.launches["fq12_cyc_pow"] == 3 * 6
+    assert counts.launches["fq12_inv"] == 6          # one final exponentiation a call
+    assert counts.launches["fq12_frob"] == 11 * 6    # 4 Frobenius maps, 7 conjugations
 
 
 def test_import_leaves_jax_unloaded():

@@ -93,11 +93,19 @@ def test_fq2_mul_sqr_vs_jax():
     assert T.fq2_decode(got) == [SF.fq2_mul(x, y) for x, y in zip(av, bv)]
 
 
+def _fq2_frob1(x):
+    """The Fq2 Frobenius as fused._frob12 applies it to coefficient 0 of
+    an Fq12 (whose factor is 1)."""
+    a = torch.zeros(2, 3, 2, *x[0].shape, dtype=x[0].dtype)
+    a[0, 0] = torch.stack(x)
+    return tuple(FU._frob12(a, 1)[0, 0])
+
+
 _FQ2_UNARY = {
     "inv": (T.fq2_inv, JT.fq2_inv),
     "mul_by_xi": (T.fq2_mul_by_xi, JT.fq2_mul_by_xi),
     "conj": (T.fq2_conj, JT.fq2_conj),
-    "frob1": (lambda x: T.fq2_frob(x, 1), lambda x: JT.fq2_frob(x, 1)),
+    "frob1": (_fq2_frob1, lambda x: JT.fq2_frob(x, 1)),
 }
 
 
@@ -109,11 +117,26 @@ def test_fq2_unary_vs_jax(op):
     assert_same(ours(_port(a_np)), on_tape(theirs, a_np))
 
 
+def _fq6_packed(fn):
+    """fused.py's plain Fq6 helper fn on stacked [3, 2, 16, B] values, as
+    the kernels' plain versions call it, on tuple inputs -> its 6 leaves."""
+    def run(a, b):
+        batch = a[0][0].shape[-1]
+        out = fn(*(convert.pack(x).view(3, 2, 16, batch) for x in (a, b)))
+        return tuple(out.reshape(6, 16, batch))
+    return run
+
+
+def _fq6_frob(a, b, k):
+    """The Fq6 Frobenius: the first half of fused._frob12 on (a, 0)."""
+    return FU._frob12(torch.stack([a, torch.zeros_like(a)]), k)[0]
+
+
 _FQ6_OPS = {
-    "mul": (T.fq6_mul, JT.fq6_mul),
-    "sqr": (lambda a, b: T.fq6_sqr(a), lambda a, b: JT.fq6_sqr(a)),
-    "inv": (lambda a, b: T.fq6_inv(a), lambda a, b: JT.fq6_inv(a)),
-    **{f"frob{k}": (lambda a, b, k=k: T.fq6_frob(a, k),
+    "mul": (_fq6_packed(FU._mul6), JT.fq6_mul),
+    "sqr": (_fq6_packed(lambda a, b: FU._sqr6(a)), lambda a, b: JT.fq6_sqr(a)),
+    "inv": (_fq6_packed(lambda a, b: FU._inv6(a)), lambda a, b: JT.fq6_inv(a)),
+    **{f"frob{k}": (_fq6_packed(lambda a, b, k=k: _fq6_frob(a, b, k)),
                     lambda a, b, k=k: JT.fq6_frob(a, k)) for k in (1, 2, 3)},
 }
 
