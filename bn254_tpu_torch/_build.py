@@ -70,6 +70,8 @@ _SIGS = {
     "msm_bucket_reduce": "ippii",   # ncoords, buckets, out, W, nb
     "fq12_inv": "pipp",          # inverse digits, n, a, out
     "fq12_frob": "ipp",          # power (1-3, or 6: the conjugation), a, out
+    "msm_combine": "ipiipp",     # ncoords, totals, W, c, scratch, out (B = lanes)
+    "point_mul": "ippip",        # ncoords, p, scalar limbs, num_bits, out
 }
 assert tuple(_SIGS) == counts.KERNELS
 

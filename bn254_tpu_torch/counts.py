@@ -18,12 +18,13 @@ KERNELS = (
     "fq2_mul_fused", "fq2_sqr_fused", "chain_mont", "chain_tower",
     "msm_bucket_sort", "msm_bucket_reduce",
     "fq12_inv", "fq12_frob",
+    "msm_combine", "point_mul",
 )
 
 # The kernels each main path launches (chip_smoke.py asserts every one).
 PAIRING_PATH = KERNELS[:11] + ("fq12_inv", "fq12_frob")   # the final exponentiation
 MSM_PATH = ("mont_mul", "mont_sqr", "fq2_mul", "fq2_sqr", "fq_pow",   # to_affine
-            "point_add", "point_double",                          # Horner + lane fold
+            "msm_combine",                                        # Horner + lane fold
             "msm_bucket_sort", "msm_accumulate", "msm_bucket_reduce")   # row 19
 GLV_PATH = ("mont_mul",                  # endo: beta x
             "point_add", "glv_ladder")   # p1 + p2, the ladder
@@ -35,7 +36,7 @@ PROBE_PATH = ("chain_mont", "chain_tower",
               "fq12_sqr", "fq12_mul", "fq12_cyc_sqr")
 CODEC_PATH = ("mont_mul", "mont_sqr", "fq2_mul", "fq2_sqr",   # curve equation, y choice
               "fq_pow",                                       # the Fq sqrt
-              "point_add", "point_double")                    # G2 subgroup check
+              "point_mul")                                    # G2 subgroup check
 
 launches = dict.fromkeys(KERNELS, 0)
 plain_calls = dict.fromkeys(KERNELS, 0)

@@ -3,13 +3,17 @@
 // a template on the coordinate field: Fq for G1, Fq2 for G2; the C entry
 // takes ncoords (1 or 2) and picks the instance.
 //
-// k_point_add / k_point_double: one thread per batch lane, 128-thread
-// blocks, the ragged edge masked, operands read once and the result
-// written once, as the other fused kernels.  Bound: the Montgomery
-// products (16 for a G1 add, 43 for a G2 add; 7 and 16 for a double) and,
-// at their one-op-per-launch size, the 6-18 words a lane moves per
-// product: both are small, so at the main path's batches the launch
-// itself dominates.
+// k_point_add / k_point_double: one group-law operation a launch, one
+// thread per batch lane, 128-thread blocks, the ragged edge masked,
+// operands read once and the result written once.  Their body is small
+// (11 products and 5 squares a unified add, 2 and 5 a double), so at one
+// operation a launch the launch and the wrapper's host work cost as much
+// as the body or more.  They serve the one-op callers (glv.prepare's
+// p1 + p2, groups.add / double).  The callers that loop over the group
+// law no longer launch them step by step: k_msm_combine (Horner and the
+// lane fold) and k_point_mul (the double-and-add) carry the whole loop in
+// a launch, so the steps run back to back on the thread's own registers
+// and stack, and the host dispatches once.
 //
 // Row 19 (pallas_fused.py _msm_acc_impl, the TPU's msm_accumulate) is
 // three kernels here.  The TPU kernel's grid runs (window, point tile) in
@@ -44,7 +48,7 @@
 // together, so the serial depth never exceeds n / lanes steps.  Bound:
 // the madds' Montgomery products (11 a G1 point, 30 a G2 point, per
 // window).  ptxas (sm_90a): 96 registers and a 160-byte frame for G1;
-// 134 registers and 1,728 bytes for G2, whose Fq2 products stay
+// 182 registers and 1,728 bytes for G2, whose lazy Fq2 products stay
 // __noinline__ (bn254.cuh).
 //
 // k_msm_bucket_reduce: one thread per (window, lane) reads its buckets
@@ -52,6 +56,51 @@
 // bucket), writing its window total into [W, 3C, 16, lanes].  About a
 // tenth of the accumulate's products for G1 2^20, a third for G2 2^16,
 // on only W * lanes threads.
+//
+// k_msm_combine (serves pallas_fused.py k_point_double / k_point_add,
+// pf:769/789, as bn254_tpu/msm.py's Horner lax.scan and roll fold run
+// them): window totals [W, 3C, 16, lanes] -> their sum [3C, 16, 1].  One
+// thread a lane runs Horner: res = totals[W - 1], then for w = W - 2 .. 0
+// c doubles and one add of totals[w] (read coalesced: lanes are minor).
+// Then each block folds its lanes as a tree in shared memory (128 G2
+// points are 24 KB), and its thread 0 writes the block's partial; the C
+// entry launches the same kernel again with W = 1 over those partials,
+// until one block holds them all.  At the MSM's 1024 lanes that is 8
+// blocks, then one block of 8 threads: two launches where the loop took
+// 304-310 launches and 10 copies.  Bound: the serial depth.  1024 lanes
+// fill 8 of the 132 SMs, so the card is far from its throughput bound;
+// one lane's chain is 252 doubles and 52 adds for G1 at c = 6 (about
+// 2,300 products' work) and 250 doubles and 60 adds for G2 at c = 5
+// (about 6,000), each product waiting on the one before.  The design
+// removes what the loop paid on top of that chain (a launch, a wrapper
+// call and a round trip through device memory a step); cutting the chain
+// itself needs several threads a lane.
+//
+// The tree equals the roll fold.  Fold step k (k = 1, 2, 4, ...) sets
+// res[i] = add(res[i], res[(i + k) mod lanes]) on every lane; by
+// induction lane i then holds V(i, 2k) = add(V(i, k), V(i + k, k)), with
+// V(i, 1) lane i's Horner result, and lane 0 ends with V(0, lanes).  The
+// tree sets s[i] = add(s[i], s[i + k]) only where i % 2k == 0; by the same
+// induction its operands are V(i, k) and V(i + k, k) (i + k is a multiple
+// of k, so stride k / 2 updated it): the same adds of the same operands in
+// the same argument order, and point_add is a pure function of its
+// operands, so lane 0's limbs are equal.  Cutting the tree at the block
+// size keeps this: block b's partial is V(b T, T), and the next level's
+// tree over the partials goes on with strides T, 2T, ...
+//
+// k_point_mul (serves pf:769/789 as bn254_tpu/groups.py's scalar_mul
+// lax.scan runs them): MSB-first double-and-add, one thread a lane over
+// num_bits steps, res and the base on the thread; the scalar's 16-bit
+// limbs [16, B] are read one word per 16 steps, coalesced.  The add runs
+// only where the bit is set, which equals the scan's add-then-select bit
+// for bit: point_add is pure, and on a zero bit the select kept res (a
+// k = 0 lane keeps the limbs that repeated doubling of (0, 1, 0) gives).
+// For the codec's r (254 bits, 101 set) that is 101 adds a lane where the
+// loop computed 254.  Every lane shares that scalar, so no warp diverges;
+// with per-lane scalars a warp diverges on the add, as k_glv_ladder does.
+// Bound: at the codec's 16,384 lanes (128 blocks, one an SM) the
+// products, 254 doubles and 101 adds a G2 lane (about 7,600 products'
+// work), which are also its serial depth.
 //
 // k_glv_ladder (pallas_fused.py _glv_call_impl, queue row 20): one thread
 // per lane runs all 128 steps.  The TPU kernel keeps res and the three
@@ -182,8 +231,8 @@ __global__ void k_msm_bucket_reduce(const int32_t* __restrict__ buckets,
   for (int b = nb - 1; b >= 1; --b) {
     Jac<F> bb;
     load_pt(bb, bk + (size_t)(b - 1) * bucket_words, lanes, lane);
-    point_add(acc, acc, bb);
-    point_add(tot, tot, acc);
+    point_add<F>(acc, acc, bb);     // not inlined for G1 either (groups.cuh)
+    point_add<F>(tot, tot, acc);
   }
   store_pt(out + (size_t)w * 3 * C * 16 * lanes, lanes, lane, tot);
 }
@@ -209,6 +258,64 @@ __global__ void k_glv_ladder(const int32_t* __restrict__ digits, int nsteps,
     if (d == 0) t = inf;
     else load_pt(t, pts + (size_t)(d - 1) * 3 * C * 16 * B, B, lane);
     point_add(res, res, t);
+  }
+  store_pt(out, B, lane, res);
+}
+
+// bn254_tpu/msm.py's Horner scan and roll fold over pallas_fused.py
+// k_point_double / k_point_add (pf:769/789): Horner for the thread's lane,
+// then the block's tree; thread 0 writes the block's partial at lane
+// blockIdx.x of out [3C, 16, gridDim.x].  lanes is a multiple of the
+// block size (both powers of two), so every thread has a lane.
+template <class F>
+__global__ void __launch_bounds__(BN254_THREADS)
+k_msm_combine(const int32_t* __restrict__ totals, int W, int c, int32_t* __restrict__ out,
+              int lanes) {
+  constexpr int C = kCoords<F>;
+  __shared__ Jac<F> s[BN254_THREADS];
+  const int t = threadIdx.x, lane = lane_index();
+  const size_t window = (size_t)3 * C * 16 * lanes;
+  Jac<F> res, tw;
+  load_pt(res, totals + (size_t)(W - 1) * window, lanes, lane);
+#pragma unroll 1
+  for (int w = W - 2; w >= 0; --w) {
+#pragma unroll 1
+    for (int j = 0; j < c; ++j) point_double(res, res);
+    load_pt(tw, totals + (size_t)w * window, lanes, lane);
+    point_add(res, res, tw);
+  }
+  s[t] = res;
+  __syncthreads();
+#pragma unroll 1
+  for (int k = 1; k < (int)blockDim.x; k *= 2) {
+    if (t % (2 * k) == 0) {
+      Jac<F> a = s[t];
+      const Jac<F> b = s[t + k];
+      point_add(a, a, b);
+      s[t] = a;
+    }
+    __syncthreads();
+  }
+  if (t == 0) store_pt(out, gridDim.x, blockIdx.x, s[0]);
+}
+
+// bn254_tpu/groups.py's scalar_mul scan over k_point_double / k_point_add
+// (pf:769/789): res = (0, 1, 0); per bit, high to low, a double and, where
+// the bit is set, the add of the base.
+template <class F>
+__global__ void k_point_mul(const int32_t* __restrict__ p, const int32_t* __restrict__ k,
+                            int nbits, int32_t* __restrict__ out, int B) {
+  const int lane = lane_index();
+  if (lane >= B) return;
+  Jac<F> base, res;
+  load_pt(base, p, B, lane);
+  f_set_zero(res.x); f_set_one(res.y); f_set_zero(res.z);
+  uint32_t word = 0;
+#pragma unroll 1
+  for (int i = nbits - 1; i >= 0; --i) {
+    if (i == nbits - 1 || i % 16 == 15) word = (uint32_t)k[(size_t)(i / 16) * B + lane];
+    point_double(res, res);
+    if ((word >> (i % 16)) & 1u) point_add(res, res, base);
   }
   store_pt(out, B, lane, res);
 }
@@ -271,6 +378,40 @@ int bn254_glv_ladder(int ncoords, const int32_t* digits, int nsteps, const int32
     BN254_LAUNCH(k_glv_ladder<Fq>, digits, nsteps, pts, out);
   }
   BN254_LAUNCH(k_glv_ladder<Fq2>, digits, nsteps, pts, out);
+}
+
+// Level 0 runs Horner over the W windows and each block's tree over the
+// B lanes; each further level runs the kernel with W = 1 over the block
+// partials of the level before, in blocks of up to BN254_THREADS, until
+// one block is left, which writes out [3C, 16, 1].  scratch holds two
+// partial buffers, n1 = B / BN254_THREADS and n1 / BN254_THREADS points
+// (none when B <= BN254_THREADS); the levels take them in turn.  B is a
+// power of two.
+int bn254_msm_combine(int ncoords, const int32_t* totals, int W, int c, int32_t* scratch,
+                      int32_t* out, int B, cudaStream_t stream) {
+  const size_t words = (size_t)3 * ncoords * 16;
+  int32_t* partials[2] = {scratch, scratch + words * (B / BN254_THREADS)};
+  const int32_t* in = totals;
+  for (int n = B, level = 0;; ++level) {
+    const int threads = n < BN254_THREADS ? n : BN254_THREADS, blocks = n / threads;
+    int32_t* dst = blocks == 1 ? out : partials[level & 1];
+    if (ncoords == 1)
+      k_msm_combine<Fq><<<blocks, threads, 0, stream>>>(in, level ? 1 : W, c, dst, n);
+    else
+      k_msm_combine<Fq2><<<blocks, threads, 0, stream>>>(in, level ? 1 : W, c, dst, n);
+    const int rc = static_cast<int>(cudaGetLastError());
+    if (rc || blocks == 1) return rc;
+    in = dst;
+    n = blocks;
+  }
+}
+
+int bn254_point_mul(int ncoords, const int32_t* p, const int32_t* k, int nbits, int32_t* out,
+                    int B, cudaStream_t stream) {
+  if (ncoords == 1) {
+    BN254_LAUNCH(k_point_mul<Fq>, p, k, nbits, out);
+  }
+  BN254_LAUNCH(k_point_mul<Fq2>, p, k, nbits, out);
 }
 
 }  // extern "C"

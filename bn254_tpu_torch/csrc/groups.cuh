@@ -19,14 +19,18 @@ template <class F> struct Jac { F x, y, z; };
 template <class F> constexpr int kCoords = sizeof(F) / sizeof(Fq);
 
 // ---------------------------------------------------------------------------
-// The coordinate field's ops, overloaded on Fq and Fq2
+// The coordinate field's ops, overloaded on Fq and Fq2.  The products take
+// the card's fastest spelling of each (bn254.cuh): an Fq square is fq_sqr
+// (36 word products where a CIOS product takes 64), a general Fq2 product
+// the lazy one (three 512-bit products, two reductions).  Both end fully
+// reduced, so no limb changes.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void f_add(Fq& r, const Fq& a, const Fq& b) { fq_add(r, a, b); }
 __device__ __forceinline__ void f_sub(Fq& r, const Fq& a, const Fq& b) { fq_sub(r, a, b); }
 __device__ __forceinline__ void f_neg(Fq& r, const Fq& a) { fq_neg(r, a); }
 __device__ __forceinline__ void f_mul(Fq& r, const Fq& a, const Fq& b) { fq_mul(r, a, b); }
-__device__ __forceinline__ void f_sqr(Fq& r, const Fq& a) { fq_mul(r, a, a); }
+__device__ __forceinline__ void f_sqr(Fq& r, const Fq& a) { fq_sqr(r, a); }
 __device__ __forceinline__ void f_set_zero(Fq& r) { r = fq_const_zero(); }
 __device__ __forceinline__ void f_set_one(Fq& r) { r = fq_const_one(); }
 
@@ -47,7 +51,9 @@ __device__ __forceinline__ bool f_eq(const Fq& a, const Fq& b) {
 __device__ __forceinline__ void f_add(Fq2& r, const Fq2& a, const Fq2& b) { fq2_add(r, a, b); }
 __device__ __forceinline__ void f_sub(Fq2& r, const Fq2& a, const Fq2& b) { fq2_sub(r, a, b); }
 __device__ __forceinline__ void f_neg(Fq2& r, const Fq2& a) { fq2_neg(r, a); }
-__device__ __forceinline__ void f_mul(Fq2& r, const Fq2& a, const Fq2& b) { fq2_mul(r, a, b); }
+__device__ __forceinline__ void f_mul(Fq2& r, const Fq2& a, const Fq2& b) {
+  fq2_mul_lazy(r, a, b);
+}
 __device__ __forceinline__ void f_sqr(Fq2& r, const Fq2& a) { fq2_sqr(r, a); }
 __device__ __forceinline__ void f_set_zero(Fq2& r) { r.c0 = fq_const_zero(); r.c1 = fq_const_zero(); }
 __device__ __forceinline__ void f_set_one(Fq2& r) { r.c0 = fq_const_one(); r.c1 = fq_const_zero(); }
@@ -77,13 +83,21 @@ __device__ __forceinline__ void store_pt(int32_t* base, int B, int lane, const J
 }
 
 // ---------------------------------------------------------------------------
-// Group law
+// Group law.  point_double and point_add are __noinline__ templates, so a
+// kernel that loops over them compiles each body once and passes points
+// through the stack.  For G1 (Fq) the two overloads below them inline the
+// bodies instead: 0-192 B of stack, 72-174 registers and 3-20 % faster in
+// every G1 kernel that calls them (k_point_add, k_point_double,
+// k_msm_combine, k_point_mul, k_glv_ladder) but k_msm_bucket_reduce,
+// whose two adds a step took 230 registers inlined and ran at half the
+// speed: it calls point_add<F>, the __noinline__ template, by name.  G2
+// keeps the calls (inlining them was not tried).
 // ---------------------------------------------------------------------------
 
 // dbl-2009-l (groups.double, k_point_double); the identity stays the
 // identity (z stays 0)
 template <class F>
-static __device__ __noinline__ void point_double(Jac<F>& r, const Jac<F>& p) {
+__device__ __forceinline__ void point_double_inl(Jac<F>& r, const Jac<F>& p) {
   F a, b, c, d, e, f, t, x3, y3, z3;
   f_sqr(a, p.x);
   f_sqr(b, p.y);
@@ -109,12 +123,20 @@ static __device__ __noinline__ void point_double(Jac<F>& r, const Jac<F>& p) {
   r.x = x3; r.y = y3; r.z = z3;
 }
 
+template <class F>
+static __device__ __noinline__ void point_double(Jac<F>& r, const Jac<F>& p) {
+  point_double_inl(r, p);
+}
+__device__ __forceinline__ void point_double(Jac<Fq>& r, const Jac<Fq>& p) {
+  point_double_inl(r, p);
+}
+
 // Unified add (groups.add, k_point_add): the generic formula, then the
 // three-way select in the JAX package's order — coincide -> double(p),
 // q at infinity -> p, p at infinity -> q.  The double is computed only
 // on coincide lanes: the select takes it nowhere else.
 template <class F>
-static __device__ __noinline__ void point_add(Jac<F>& r, const Jac<F>& p, const Jac<F>& q) {
+__device__ __forceinline__ void point_add_inl(Jac<F>& r, const Jac<F>& p, const Jac<F>& q) {
   const bool p_inf = f_is_zero(p.z), q_inf = f_is_zero(q.z);
   F z1s, z2s, u1, u2, z1c, z2c, s1, s2, h, rr, i, j, v, t;
   Jac<F> out;
@@ -150,10 +172,18 @@ static __device__ __noinline__ void point_add(Jac<F>& r, const Jac<F>& p, const 
   f_sub(out.z, out.z, z2s);
   f_mul(out.z, out.z, h);
 
-  if (coincide) point_double(out, p);
+  if (coincide) point_double<F>(out, p);   // the __noinline__ template: a rare branch
   if (q_inf) out = p;
   if (p_inf) out = q;
   r = out;
+}
+
+template <class F>
+static __device__ __noinline__ void point_add(Jac<F>& r, const Jac<F>& p, const Jac<F>& q) {
+  point_add_inl(r, p, q);
+}
+__device__ __forceinline__ void point_add(Jac<Fq>& r, const Jac<Fq>& p, const Jac<Fq>& q) {
+  point_add_inl(r, p, q);
 }
 
 // Mixed add of an affine q without the doubling branch

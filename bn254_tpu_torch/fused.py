@@ -638,6 +638,45 @@ def point_double_plain(ncoords: int, p):
     return torch.stack(_point_double(A, *A.point(p).unbind(0))).reshape(p.shape)
 
 
+def msm_combine_plain(ncoords: int, totals, c: int):
+    """msm.py's loop, as the JAX package runs it (msm.py:288-301 and the
+    roll fold after it): Horner over the window totals [W, 3c, 16, lanes],
+    high to low (c doubles, then the add of the window's total), then
+    log2(lanes) adds of res and res rolled by k = 1, 2, 4, ... lanes;
+    lane 0 holds the sum -> [3c, 16, 1]."""
+    counts.plain_calls["msm_combine"] += 1
+    A = _coord(ncoords)
+    lanes = _combine_lanes(totals)
+    res = A.point(totals[-1]).unbind(0)
+    for w in range(totals.shape[0] - 2, -1, -1):
+        for _ in range(c):
+            res = _point_double(A, *res)
+        res = _point_add(A, res, A.point(totals[w]).unbind(0))
+    k = 1
+    while k < lanes:
+        res = _point_add(A, res, tuple(torch.roll(x, -k, -1) for x in res))
+        k *= 2
+    return torch.stack(res).reshape(3 * ncoords, N, lanes)[..., :1].contiguous()
+
+
+def point_mul_plain(ncoords: int, p, k_limbs, num_bits: int):
+    """The JAX package's scalar_mul scan (groups.py:294-307): res starts at
+    (0, 1, 0); per bit, high to low, a double, then the add of the base
+    selected on the bit.  k_limbs: canonical scalar limbs [16, B].  A step
+    where no lane's bit is set skips the add: the select keeps res."""
+    counts.plain_calls["point_mul"] += 1
+    A = _coord(ncoords)
+    base = A.point(p).unbind(0)
+    zero = torch.zeros_like(base[0])
+    res = (zero, A.one(zero), zero)
+    for i in range(num_bits - 1, -1, -1):
+        res = _point_double(A, *res)
+        bit = ((k_limbs[i // L.LIMB_BITS] >> (i % L.LIMB_BITS)) & 1) > 0
+        if bool(bit.any()):
+            res = tuple(A.select(bit, a, b) for a, b in zip(_point_add(A, res, base), res))
+    return torch.stack(res).reshape(p.shape)
+
+
 def glv_ladder_plain(ncoords: int, pts, digits):
     """The JAX package's scan spelling (glv.py:302-319): res starts at
     (0, 1, 0); per digit a double, the two-level table select (digit 0
@@ -981,6 +1020,66 @@ def point_double(ncoords: int, p):
     check("point_double", batch, p.device, (p, (3 * ncoords,)))
     out = torch.empty_like(p)
     launch("point_double", batch, ncoords, p.data_ptr(), out.data_ptr())
+    return out
+
+
+def _combine_lanes(totals) -> int:
+    """The lane count of window totals [W, 3c, 16, lanes]: a power of two,
+    which the lane fold needs."""
+    lanes = totals.shape[-1]
+    if lanes < 1 or lanes & (lanes - 1):
+        raise ValueError(f"msm_combine: the lane fold needs a power-of-two lane count, "
+                         f"got {lanes}")
+    return lanes
+
+
+COMBINE_BLOCK = 128             # csrc/groups.cu's block size (BN254_THREADS)
+
+
+def msm_combine(ncoords: int, totals, c: int):
+    """The window totals [W, 3c, 16, lanes] (lanes a power of two) summed:
+    Horner over the windows, high to low (c doubles and one add a window),
+    then the lane fold -> [3c, 16, 1].  Kernel: csrc/groups.cu
+    k_msm_combine (one thread a lane, then a tree over each block's lanes
+    and, from 256 lanes, a second launch over the block partials), serving
+    pallas_fused.py k_point_double / k_point_add (pf:769/789) as msm.py's
+    Horner scan and roll fold run them."""
+    lanes = _combine_lanes(totals)
+    if not on_cuda(totals):
+        return msm_combine_plain(ncoords, totals, c)
+    _coord(ncoords)
+    W = totals.shape[0]
+    _want("msm_combine", totals, torch.int32, (W, 3 * ncoords, N, lanes), totals.device)
+    if W < 1 or c < 0 or totals.numel() >= 1 << 31:
+        raise ValueError(f"msm_combine: want W >= 1 windows and c >= 0, got "
+                         f"{tuple(totals.shape)}, c={c}")
+    blocks = lanes // COMBINE_BLOCK if lanes > COMBINE_BLOCK else 0
+    scratch = torch.empty(3 * ncoords * N * (blocks + blocks // COMBINE_BLOCK),
+                          dtype=torch.int32, device=totals.device)
+    out = torch.empty((3 * ncoords, N, 1), dtype=torch.int32, device=totals.device)
+    launch("msm_combine", lanes, ncoords, totals.data_ptr(), W, c, scratch.data_ptr(),
+           out.data_ptr())
+    return out
+
+
+def point_mul(ncoords: int, p, k_limbs, num_bits: int):
+    """k * p by MSB-first double-and-add over a fixed num_bits (at most
+    256): packed points [3c, 16, B], canonical scalar limbs [16, B] int32.
+    Leading zero bits keep res at (0, 1, 0).  Kernel: csrc/groups.cu
+    k_point_mul (one thread a lane, the add only where the bit is set),
+    serving pallas_fused.py k_point_double / k_point_add (pf:769/789) as
+    the JAX package's scalar_mul scan runs them."""
+    if not 0 <= num_bits <= N * L.LIMB_BITS:
+        raise ValueError(f"point_mul: num_bits must be in [0, {N * L.LIMB_BITS}], got "
+                         f"{num_bits}")
+    if not on_cuda(p):
+        return point_mul_plain(ncoords, p, k_limbs, num_bits)
+    _coord(ncoords)
+    batch = p.shape[-1]
+    check("point_mul", batch, p.device, (p, (3 * ncoords,)), (k_limbs, ()))
+    out = torch.empty_like(p)
+    launch("point_mul", batch, ncoords, p.data_ptr(), k_limbs.data_ptr(), num_bits,
+           out.data_ptr())
     return out
 
 

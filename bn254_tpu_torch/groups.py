@@ -8,15 +8,14 @@ The base field is abstracted by an op table (DevFq / DevFq2), as in the
 JAX package.  ``double`` and ``add`` are one kernel each (fused.py
 ``point_double`` / ``point_add``, queue rows 17-18), for G1 and for G2,
 where the JAX package runs ``pallas_fused.point_double`` / ``point_add`` on
-the TPU; on CPU tensors the wrappers take their plain versions, which are
-the JAX package's jnp formulas.  ``add`` is the unified branchless add
-(3-way select): it agrees with the reference on P + inf, inf + Q, P + P,
-P + (-P) and the generic case.
+the TPU; ``scalar_mul``, the JAX package's scan over them, is one kernel
+too (``point_mul``); on CPU tensors the wrappers take their plain
+versions, which are the JAX package's jnp formulas.  ``add`` is the
+unified branchless add (3-way select): it agrees with the reference on
+P + inf, inf + Q, P + P, P + (-P) and the generic case.
 """
 
 from __future__ import annotations
-
-import torch
 
 from . import fused as FU
 from . import limbs as L
@@ -172,19 +171,12 @@ def eq_points(K, p, q):
 
 
 def scalar_mul(K, p, k_limbs, num_bits: int = 256):
-    """MSB-first double-and-add over a fixed num_bits (mod.rs:272-292): per
-    bit one point_double and one point_add kernel, then a select on the
-    bit.  k_limbs: canonical (not Montgomery) scalar limbs [16, B] int32.
+    """MSB-first double-and-add over a fixed num_bits (mod.rs:272-292), one
+    point_mul kernel: per bit a double and, where the bit is set, the add
+    of p.  k_limbs: canonical (not Montgomery) scalar limbs [16, B] int32.
     Leading zero bits keep res at the identity, so the result equals the
     reference's bit_length()-bounded loop."""
-    nc = K.COORDS
-    base = pack(p)
-    res = pack(zero_point(K, K.batch_of(p[0]), base.device))
-    for i in range(num_bits - 1, -1, -1):
-        res = FU.point_double(nc, res)
-        bit = ((k_limbs[i // L.LIMB_BITS] >> (i % L.LIMB_BITS)) & 1).bool()
-        res = torch.where(bit, FU.point_add(nc, res, base), res)
-    return unpack_point(nc, res)
+    return unpack_point(K.COORDS, FU.point_mul(K.COORDS, pack(p), k_limbs, num_bits))
 
 
 def to_affine(K, p):

@@ -14,7 +14,11 @@ in one bucket (``msm_args``); the bucket sort takes their digits, signed
 and unsigned (``sort_args``), the bucket reduce their buckets
 (``reduce_args``); GLV ladder inputs are real tables
 and digits from the port's decomposition, with edge scalars and planted
-tables whose adds meet their own point or its negative (``glv_args``).
+tables whose adds meet their own point or its negative (``glv_args``);
+the combine's window totals plant infinity windows, Horner's own running
+value and P + (-P) fold pairs (``combine_points``), and the
+double-and-add's scalars r, r - 1, 0 and 1 on points in and outside the
+G2 subgroup (``point_mul_args``).
 The lazy Fq2 product's inputs plant the extremes of its columns
 (``fq2_extremes``); the probes chain each op at its script's batch and
 chain length (``probe_args``).
@@ -47,6 +51,7 @@ from .convert import pack
 from .fields import FR
 from .pairing import _PRE_KINDS
 from .spec import constants as C
+from .spec import field as SF
 from .spec import group as SG
 
 FR_MOD = FR.mod
@@ -70,6 +75,7 @@ class KernelCase:
     make_args: Callable         # (rng, batch, device) -> args
     work: Callable              # args -> (Montgomery products, bytes moved)
     batches: tuple = (16384, 1000)   # the main batch, then a ragged one
+    depth: Callable | None = None    # args -> products' work on one lane's chain
 
 
 def residues(rng, coords: int, batch: int, device, mod: L.Mod = MK.FQ_MOD):
@@ -211,6 +217,101 @@ def reduce_args(ncoords: int):
         W = digits.shape[0]
         return ncoords, (sums.reshape(nb - 1, 3 * ncoords, L.N_LIMBS, W, lanes)
                          .permute(3, 0, 1, 2, 4).contiguous())
+    return make
+
+
+def combine_points(rng, ncoords: int, lanes: int, W: int, c: int):
+    """Spec window totals [W][lanes] for the combine (Horner, then the lane
+    fold): real points with random z, and planted lanes — lane 1's top
+    window at infinity (Horner starts at infinity), lane 2's window 1 at
+    infinity, lane 3's window W - 3 and lane 4's window 0 equal to Horner's
+    running value there with another z (the add's coincide branch), lane 7
+    the negation of lane 6 in every window (the fold's first step adds
+    P + (-P)), and, from 16 lanes, lanes 8-15 the negations of lanes 0-7
+    (P + (-P) at stride 8)."""
+    rnd = random.Random(int(rng.integers(1 << 62)))
+    ops, bases = _spec_bases(ncoords, rnd)
+    lam = lambda: (rnd.randrange(1, C.Q) if ncoords == 1
+                   else (rnd.randrange(C.Q), rnd.randrange(1, C.Q)))
+    tot = [[_rescale(bases[rnd.randrange(8)], lam(), ops) for _ in range(lanes)]
+           for _ in range(W)]
+    zero = SG.zero(ops)
+    tot[W - 1][1] = zero
+    tot[1][2] = zero
+    for lane, at in ((3, W - 3), (4, 0)):
+        res = tot[W - 1][lane]
+        for w in range(W - 2, at - 1, -1):
+            for _ in range(c):
+                res = SG.double(res, ops)
+            if w > at:
+                res = SG.add(res, tot[w][lane], ops)
+        tot[at][lane] = _rescale(res, lam(), ops)
+    pairs = [(6, 7)] + ([(j, 8 + j) for j in range(8)] if lanes >= 16 else [])
+    for a, b in pairs:
+        for w in range(W):
+            tot[w][b] = SG.neg(tot[w][a], ops)
+    return tot
+
+
+def combine_args(ncoords: int):
+    """(ncoords, window totals [W, 3c, 16, lanes], c) at the MSM's window
+    c = MSM_FUSED_WINDOW (W = 43 for G1, 51 for G2), the totals from
+    ``combine_points``."""
+    def make(rng, lanes, device):
+        c = M.MSM_FUSED_WINDOW[ncoords]
+        W = (254 + 1 + c - 1) // c
+        K = _GROUP[ncoords]
+        tot = combine_points(rng, ncoords, lanes, W, c)
+        return ncoords, torch.stack([pack(G.encode_points(K, row, device)) for row in tot]), c
+    return make
+
+
+# point_mul_args' first lanes: (k, the point: in the subgroup, outside it
+# (G2 only; a G1 lane takes a point in it) or at infinity)
+POINT_MUL_EDGES = ((C.R, "in"), (C.R - 1, "off"), (0, "in"), (1, "in"), (C.R, "off"),
+                   (C.R - 1, "in"), (1, "off"), (0, "off"), (5, "inf"))
+
+
+def twist_points(rnd: random.Random, count: int):
+    """Affine points of the twist y^2 = x^3 + b2 from random x: outside the
+    G2 subgroup (r P != 0), as a random twist point is but for a 1 / h
+    chance, h the twist's cofactor."""
+    ops = SG.G2_PARAMS[0]
+    out = []
+    while len(out) < count:
+        x = (rnd.randrange(C.Q), rnd.randrange(C.Q))
+        y = SF.fq2_sqrt(SF.fq2_add(SF.fq2_mul(SF.fq2_sqr(x), x), C.B2))
+        if y is not None:
+            out.append((x, y, ops.one))
+    return out
+
+
+def point_mul_args(ncoords: int):
+    """(ncoords, points [3c, 16, B], scalar limbs [16, B], num_bits): real
+    points with random z and random scalars below r, the first lanes as
+    ``POINT_MUL_EDGES`` says (k = r, r - 1, 0, 1 on points in and outside
+    the G2 subgroup, a point at infinity) and, for G2, a twist point
+    outside the subgroup on every eighth lane after them.  The limbs are
+    not reduced mod r, so k = r stays r.  num_bits is 254 (r's bit
+    length), or 64 from 16384 lanes on, where the plain version's 2 x 254
+    steps would take most of a minute on the card."""
+    def make(rng, batch, device):
+        K, ops = _GROUP[ncoords], _SPEC[ncoords][0]
+        rnd = random.Random(int(rng.integers(1 << 62)))
+        _, bases = _spec_bases(ncoords, rnd)
+        off = twist_points(rnd, 4) if ncoords == 2 else bases[:4]
+        lam = lambda: (rnd.randrange(1, C.Q) if ncoords == 1
+                       else (rnd.randrange(C.Q), rnd.randrange(1, C.Q)))
+        pts = [_rescale(off[i % 4] if i % 8 == 5 else bases[i % 8], lam(), ops)
+               for i in range(batch)]
+        ks = [rnd.randrange(C.R) for _ in range(batch)]
+        for lane, (k, kind) in enumerate(POINT_MUL_EDGES[:batch]):
+            ks[lane] = k
+            pts[lane] = (SG.zero(ops) if kind == "inf" else
+                         _rescale((off if kind == "off" else bases)[lane % 4], lam(), ops))
+        limbs = torch.from_numpy(L._ints_to_limbs(ks).astype(np.int32)).to(device)
+        return (ncoords, pack(G.encode_points(K, pts, device)), limbs,
+                64 if batch >= 16384 else 254)
     return make
 
 
@@ -424,6 +525,49 @@ def msm_work(ncoords, points, digits, nb, signed, lanes):
     return int(products), (_io(n, 2 * ncoords) + 4 * W * n + _io(W * lanes, 3 * ncoords))
 
 
+def _finite(t, ncoords):
+    """[.., 3c, 16, B] packed points -> [.., B] True where z != 0."""
+    return (t[..., 2 * ncoords:, :, :] != 0).flatten(-3, -2).any(-2)
+
+
+def combine_work(ncoords, totals, c):
+    """Every lane doubles c times a window (W - 1 windows); an add where
+    the window's total is finite (adding (0, 1, 0) needs no product); the
+    fold's lanes - 1 adds.  Reads the totals, writes one point."""
+    W, _, _, lanes = totals.shape
+    products = ((W - 1) * c * lanes * _DBL[ncoords]
+                + (int(_finite(totals[:-1], ncoords).sum()) + lanes - 1) * _ADD[ncoords])
+    return int(products), _io(W * lanes, 3 * ncoords) + _io(1, 3 * ncoords)
+
+
+def combine_depth(ncoords, totals, c):
+    """Products' work on one lane's chain: (W - 1) c doubles and W - 1
+    adds of Horner, then log2(lanes) adds of the fold."""
+    W, lanes = totals.shape[0], totals.shape[-1]
+    return (W - 1) * c * _DBL[ncoords] + (W - 1 + lanes.bit_length() - 1) * _ADD[ncoords]
+
+
+def _scalar_bits(k, num_bits):
+    """[num_bits, B] bool: bit i of each lane's scalar limbs [16, B]."""
+    i = torch.arange(num_bits, device=k.device)
+    return ((k[i // L.LIMB_BITS] >> (i % L.LIMB_BITS)[:, None]) & 1) > 0
+
+
+def point_mul_work(ncoords, p, k, num_bits):
+    """A double every step; an add where the bit is set and the base is
+    finite.  Reads the points and the scalars, writes the results."""
+    b = p.shape[-1]
+    adds = int((_scalar_bits(k, num_bits) & _finite(p, ncoords)).sum())
+    return (int(num_bits * b * _DBL[ncoords] + adds * _ADD[ncoords]),
+            _io(b, 6 * ncoords + 1))
+
+
+def point_mul_depth(ncoords, p, k, num_bits):
+    """num_bits doubles and the most adds any lane runs."""
+    adds = int(_scalar_bits(k, num_bits).sum(0).max())
+    return num_bits * _DBL[ncoords] + adds * _ADD[ncoords]
+
+
 def sort_work(digits, nb, signed, lanes):
     """No products; the digits read, the offsets and the tile list written."""
     W, n = digits.shape
@@ -574,6 +718,15 @@ CASES = (
                  lambda rng, b, d, p=p: (residues(rng, 12, b, d), p), _w_fq12_frob,
                  batches=_FINAL_EXP_BATCHES)
       for p in FU.FROB_POWERS),
+    # the group law's step loops, one launch each (rows 17-18's callers)
+    *(KernelCase("msm_combine", f"msm_combine[g{nc}]", _GR_CU, f"{_PF}:769/789",
+                 FU.msm_combine, FU.msm_combine_plain, combine_args(nc), combine_work,
+                 batches=(1024, 128, 8), depth=combine_depth)
+      for nc in (1, 2)),
+    *(KernelCase("point_mul", f"point_mul[g{nc}]", _GR_CU, f"{_PF}:769/789",
+                 FU.point_mul, FU.point_mul_plain, point_mul_args(nc), point_mul_work,
+                 batches=_FINAL_EXP_BATCHES, depth=point_mul_depth)
+      for nc in (1, 2)),
 )
 
 

@@ -14,14 +14,13 @@ sum_i k_i * P_i over G1 or G2, in four steps:
    for every finite point either way, and infinity lanes carry digit 0.
 2. ``fused.msm_accumulate`` (queue row 19): every lane of every window
    accumulates its own buckets and reduces them -> [W, 3c, 16, lanes].
-3. ``combine``: Horner over the windows, high to low (c point_double
-   kernels and one point_add kernel per window), at full lane width.
-4. Fold the lanes by roll-and-add (log2(lanes) point_add kernels); lane 0
-   holds the sum.
+3. Horner over the windows, high to low (c doubles and one add per
+   window), at full lane width,
+4. then the fold of the lanes (the JAX package's roll-and-add); steps 3
+   and 4 are one ``fused.msm_combine`` call -> [3c, 16, 1].
 
-Every group op runs on the row 17-18 kernels, so the whole MSM stays on
-the card.  The JAX package's scan design (its ``tiles=`` path, for
-XLA:CPU and the tape) is not carried over.
+Every group op runs on the card.  The JAX package's scan design (its
+``tiles=`` path, for XLA:CPU and the tape) is not carried over.
 """
 
 from __future__ import annotations
@@ -109,29 +108,11 @@ def prepare(K, points, scalars, c: int, num_bits: int = 254, lanes: int = LANES)
     return pack((ax, ay)), dgs
 
 
-def combine(K, totals, c: int):
-    """Steps 3-4: window totals [W, 3c, 16, lanes] -> the sum, packed
-    [3c, 16, 1]."""
-    nc = K.COORDS
-    res = totals[-1]
-    for w in range(totals.shape[0] - 2, -1, -1):
-        for _ in range(c):
-            res = FU.point_double(nc, res)
-        res = FU.point_add(nc, res, totals[w])
-    lanes = res.shape[-1]
-    assert lanes & (lanes - 1) == 0, "the lane fold needs a power-of-two lane count"
-    k = 1
-    while k < lanes:
-        res = FU.point_add(nc, res, torch.roll(res, -k, -1))
-        k *= 2
-    return res[..., :1].contiguous()
-
-
 def _msm_fused(K, points, scalars, c: int, num_bits: int = 254, lanes: int = LANES):
     packed, dgs = prepare(K, points, scalars, c, num_bits, lanes)
     totals = FU.msm_accumulate(K.COORDS, packed, dgs, (1 << (c - 1)) + 1,
                                signed=True, lanes=lanes)
-    return unpack_point(K.COORDS, combine(K, totals, c))
+    return unpack_point(K.COORDS, FU.msm_combine(K.COORDS, totals, c))
 
 
 def msm(K, points, scalars, c: int | None = None, num_bits: int = 256,

@@ -1,18 +1,22 @@
-"""Time one kernel under several builds, on the card.
+"""Time kernels under several builds, on the card.
 
-    python3 -m bn254_tpu_torch.regcap_sweep [label] [variant ...]
+    python3 -m bn254_tpu_torch.regcap_sweep [label[@B][,label[@B]...]] [variant ...]
 
 A variant is ``none`` (the default build), a ptxas register cap (a
 number: ``nvcc -maxrregcount=<cap>``), any other nvcc flag (``-D...``
 defines a macro for a trial build of a changed source), or several of
 these joined by commas.  For each, the kernels are built with it (a
-library of their own in ``_build/``, beside the default one), and the
+library of their own in ``_build/``, beside the default one), and each
 kernel case `label` of ``kernel_cases`` (default ``fq12_cyc_pow[naf]``,
 TPU row 11) is checked against its plain version at its batches
-(tolerance 0) and timed at its first batch (CUDA events, mean of 10 after
-a warm-up).  One line per variant: ptxas's registers and stack of the
-case's entry, ms, and the bound its inputs give.  Default variants: none
-168 128 96.
+(tolerance 0) and timed at its first batch, or at B where the label says
+``@B`` (CUDA events, mean of 10 after a warm-up; a one-op kernel needs a
+batch past its wrapper's host time to show its body).  One line per
+variant and label: ptxas's registers, stack and spill stores of the
+case's entry, ms, and the bound its inputs give.  A label the checkout
+does not have is skipped, so the same command times an older checkout
+(copy this file into it) beside this one.  Default variants: none 168
+128 96.
 """
 
 from __future__ import annotations
@@ -29,18 +33,21 @@ from . import kernel_cases as KC
 SEED = 7            # chip_smoke.py's seed: the same inputs
 
 
-def _entry_usage(log: str, kernel: str) -> str:
-    """'<registers> registers, <stack> bytes stack' of the first entry
-    whose mangled name holds `kernel`, from nvcc's -Xptxas -v log."""
-    entry, stack = None, "?"
+def _entry_usage(log: str, kernel: str, field: str = "") -> str:
+    """'<registers> registers, <stack> bytes stack, <spill> bytes spill
+    stores' of the first entry whose mangled name holds `kernel` and, for
+    a group-law template, the instance's field (``IN5bn2542Fq`` or
+    ``IN5bn2543Fq2``), from nvcc's -Xptxas -v log."""
+    entry, stack, spill = None, "?", "?"
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            entry, stack = (line.split("'")[1] if kernel in line else None), "?"
+            entry = line.split("'")[1] if kernel in line and field in line else None
+            stack, spill = "?", "?"
         elif entry and "bytes stack frame" in line:
-            stack = line.split()[0]
+            stack, spill = line.split()[0], line.split(",")[1].split()[0]
         elif entry and "Used" in line and "registers" in line:
             regs = line.split("Used")[1].split("registers")[0].strip()
-            return f"{regs} registers, {stack} bytes stack"
+            return f"{regs} registers, {stack} bytes stack, {spill} bytes spill stores"
     return "not in the build log"
 
 
@@ -60,10 +67,8 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("regcap_sweep: no CUDA device", file=sys.stderr)
         return 1
-    label = argv[0] if argv else "fq12_cyc_pow[naf]"
+    labels = (argv[0] if argv else "fq12_cyc_pow[naf]").split(",")
     variants = argv[1:] or ["none", "168", "128", "96"]
-    case = next(c for c in KC.CASES if c.label == label)
-    kernel = "k_" + case.name
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
@@ -76,18 +81,27 @@ def main(argv) -> int:
         _build._LIB = None
         _build.library_path().unlink(missing_ok=True)     # build, so that the log is this variant's
         _build.library()
-        usage = _entry_usage((_build.BUILD_DIR / "build.log").read_text(), kernel)
-        for batch in case.batches:
+        log = (_build.BUILD_DIR / "build.log").read_text()
+        for spec in labels:
+            label, _, at = spec.partition("@")
+            case = next((c for c in KC.CASES if c.label == label), None)
+            if case is None:
+                print(f"{label} {variant}: no such kernel case here", flush=True)
+                continue
+            field = "IN5bn2543Fq2" if "[g2" in label else "IN5bn2542Fq" if "[g1" in label else ""
+            usage = _entry_usage(log, "k_" + case.name, field)
+            for batch in case.batches:
+                args = case.make_args(np.random.default_rng(SEED), batch, dev)
+                err = KC.max_abs_err(case.kernel(*args), case.plain(*args))
+                if err:
+                    raise RuntimeError(f"{label} at {variant}, B={batch}: differs by {err}")
+            batch = int(at) if at else case.batches[0]
             args = case.make_args(np.random.default_rng(SEED), batch, dev)
-            err = KC.max_abs_err(case.kernel(*args), case.plain(*args))
-            if err:
-                raise RuntimeError(f"{label} at {variant}, B={batch}: differs by {err}")
-        args = case.make_args(np.random.default_rng(SEED), case.batches[0], dev)
-        ms = _ms(lambda: case.kernel(*args))
-        bound, by = KC.bound_ms(*case.work(*args))
-        print(f"{label} {variant}: {usage}; max_abs_err 0 at B={case.batches}; "
-              f"{ms:.4f} ms at B={case.batches[0]} (bound {bound:.4f} ms, {by}) [{card}]",
-              flush=True)
+            ms = _ms(lambda: case.kernel(*args))
+            bound, by = KC.bound_ms(*case.work(*args))
+            print(f"{label} {variant}: {usage}; max_abs_err 0 at B={case.batches}; "
+                  f"{ms:.4f} ms at B={batch} (bound {bound:.4f} ms, {by}) [{card}]",
+                  flush=True)
     _build.FLAGS = base
     _build._LIB = None
     return 0

@@ -8,14 +8,15 @@ decompression, once on one NVIDIA GPU and check them.
 Phases (any failure raises, so the exit code is not 0):
 
 1. Print the card (nvidia-smi name and power limit), build every CUDA
-   kernel of counts.KERNELS (twenty-five) from bn254_tpu_torch/csrc/ and
+   kernel of counts.KERNELS (twenty-seven) from bn254_tpu_torch/csrc/ and
    print the build's seconds and ptxas's registers and stack of the MSM
-   kernels, of the three kernels that run a team of six threads a lane
-   (csrc/fq12_team.cuh): the cyclotomic ladder (row 11), the Miller
-   kernel (row 6) and the Fq12 product (row 9), and of the Fermat chain
-   (row 5) and the final exponentiation's Fq12 inverse and Frobenius maps;
-   every other kernel runs one thread a lane (every entry's numbers stay
-   in bn254_tpu_torch/_build/build.log).
+   kernels, of the group law's four (one add, one double, the MSM's
+   Horner + lane fold and the double-and-add), of the three kernels that
+   run a team of six threads a lane (csrc/fq12_team.cuh): the cyclotomic
+   ladder (row 11), the Miller kernel (row 6) and the Fq12 product (row
+   9), and of the Fermat chain (row 5) and the final exponentiation's
+   Fq12 inverse and Frobenius maps; every other kernel runs one thread a
+   lane (every entry's numbers stay in bn254_tpu_torch/_build/build.log).
 2. Kernel vs plain version: each kernel on CUDA tensors made from a seed
    (bn254_tpu_torch/kernel_cases.py: field residues with 0, 1 and q - 1
    in the first lanes; real G1/G2 points with the group law's edge lanes;
@@ -23,18 +24,25 @@ Phases (any failure raises, so the exit code is not 0):
    skewed variant with every lane of a window in one bucket; the bucket
    sort on signed, unsigned and skewed digits; the bucket reduce; GLV
    tables and digits from the port's decomposition with edge scalars and
-   planted coincide and P + (-P) lanes; the lazy Fq2 product's column
-   extremes; the probes at their scripts' batches, 32768 and 8192) at
-   B = 16384 and at a ragged B = 1000 (n = 5000 for the MSM kernels; the
-   Fq12 product also at B = 3, fewer lanes than a warp's five teams; the
-   Fermat chain, the Fq12 inverse and each Frobenius map also at B = 3
-   and at pairing_batch's B = 1), against its plain PyTorch version on
-   the same tensors.  Tolerance 0: these are integers.  The first variant
-   of each kernel (Fq, NAF, G1, mul, fq_mul, signed, Frobenius power 1),
-   fq12_cyc_pow's binary digits (TPU row 12), the conjugation and the
-   skewed MSM timed at the main batch (CUDA events; the plain version
-   once), beside the bound its inputs give; the Miller kernel's line
-   also gives the min and max of its 10 timed calls.
+   planted coincide and P + (-P) lanes; the MSM's window totals with
+   infinity windows, a window equal to Horner's running value and P + (-P)
+   fold pairs; scalars r, r - 1, 0, 1 on points in and outside the G2
+   subgroup; the lazy Fq2 product's column extremes; the probes at their
+   scripts' batches, 32768 and 8192) at B = 16384 and at a ragged B =
+   1000 (n = 5000 for the MSM kernels; the Fq12 product also at B = 3,
+   fewer lanes than a warp's five teams; the Fermat chain, the Fq12
+   inverse, each Frobenius map and the double-and-add also at B = 3 and
+   at pairing_batch's B = 1, the double-and-add over 64 bits at 16384
+   lanes and r's 254 at the others; the Horner + lane fold at the MSM's
+   1024 lanes and at 128 and 8), against its plain PyTorch version on the
+   same tensors.  Tolerance 0: these are integers.  The first variant of
+   each kernel (Fq, NAF, G1, mul, fq_mul, signed, Frobenius power 1),
+   fq12_cyc_pow's binary digits (TPU row 12), the conjugation, the skewed
+   MSM and the G2 variants of the group law's four timed at the main
+   batch (CUDA events; the plain version once), beside the bound its
+   inputs give and, for the two step loops, the serial depth (products
+   on one lane's chain); the Miller kernel's line also gives the min and
+   max of its 10 timed calls.
 3. Main path, with every launch and plain-call counter reset first:
    ``pairing`` on 16384 Jacobian pairs (z != 1) made by spec additions as
    bench.py makes them, 8 lanes checked against the spec pairing; the
@@ -58,16 +66,18 @@ Phases (any failure raises, so the exit code is not 0):
    each result is checked projectively against (sum k_i a_i mod r) G from
    the spec, a_i the multiple lane i holds.  Then ``batch.msm_g1`` /
    ``msm_g2`` on 64 random points against the spec's sum.  Every kernel
-   of the path must have launched and no plain version may have run.
+   of the path must have launched, one Horner + lane fold call an MSM and
+   no one-op add or double, and no plain version may have run.
 6. MSM timing: ms per MSM and points/s for G1 2^20 and G2 2^16, and the
    split into prepare (digits and affine conversion), accumulate and
    Horner + lane fold (CUDA events, mean of 3 after a warm-up).  On the
    same prepared inputs (all 1024 point tiles a lane for G1, 64 for G2)
    the accumulate (row 19: the bucket sort, the point-major copy, the
    accumulation and the reduce) must equal its plain version bit for bit,
-   and so must the sort and the reduce on their own; each of the four
-   steps is timed, and the kernels line takes the times and bounds of row
-   19 and of the sort and the reduce from the G1 2^20 inputs.  Then the
+   and so must the sort, the reduce and the Horner + lane fold on their
+   own; each of the four steps is timed, and the kernels line takes the
+   times and bounds of row 19, of the sort, the reduce and the Horner +
+   lane fold from the G1 2^20 inputs.  Then the
    G1 accumulate is timed on its worst case at that size: every nonzero
    digit of a window in one bucket (phase 2 holds that case against its
    plain version at n = 16384).
@@ -75,7 +85,7 @@ Phases (any failure raises, so the exit code is not 0):
    G1 and G2 at B = 32768 on msm_inputs' points and scalars (infinity
    points, k = 0, 1, r - 1, lambda, r - lambda planted), every lane
    checked projectively against the double-and-add ``groups.scalar_mul``
-   and 19 lanes against the spec; ``batch.scalar_mul_g1`` on 64 points
+   (one point_mul kernel) and 19 lanes against the spec; ``batch.scalar_mul_g1`` on 64 points
    against the spec.  Then each kernel of the path (mont_mul for beta x,
    point_add for p1 + p2, the ladder) against its plain version on the
    path's own inputs, and ms per call and scalar-muls/s split into
@@ -103,8 +113,9 @@ Phases (any failure raises, so the exit code is not 0):
    vectors.  Every valid lane round-trips to its point's affine limbs with
    z = 1, every planted invalid lane is masked off, and 16 sampled lanes
    of each group and the planted ones equal the host codec's result or
-   exception.  Then decompressions/s, split into host parse, square root,
-   y selection and (G2) subgroup check.
+   exception; the G2 subgroup check is one point_mul launch, and no
+   one-op add or double runs.  Then decompressions/s, split into host
+   parse, square root, y selection and (G2) subgroup check.
 
 Each main path must launch every kernel it uses and no plain version.
 The line before the last is the kernels' JSON record (launches summed
@@ -126,9 +137,11 @@ N_RAGGED = 1000
 SEED = 7
 ROW_12 = "fq12_cyc_pow[binary]"     # TPU row 12: row 11's kernel on binary digits
 # timed beside each kernel's first variant
-TIMED = (ROW_12, "msm_accumulate[g1,skew]", "fq12_frob[conj]")
+TIMED = (ROW_12, "msm_accumulate[g1,skew]", "fq12_frob[conj]", "point_add[g2]",
+         "point_double[g2]", "msm_combine[g2]", "point_mul[g2]")
 PTXAS = ("k_msm_bucket_sort", "k_msm_accumulate", "k_msm_bucket_reduce", "k_fq12_cyc_pow",
-         "k_miller_precompute", "k_fq12_mul", "k_fq_pow", "k_fq12_inv", "k_fq12_frob")
+         "k_miller_precompute", "k_fq12_mul", "k_fq_pow", "k_fq12_inv", "k_fq12_frob",
+         "k_point_add", "k_point_double", "k_msm_combine", "k_point_mul")
 SPREAD = ("miller_precompute",)     # also the min and max of the timed reps (row 6)
 
 
@@ -243,7 +256,7 @@ def phase_kernels(dev):
         line = (f"kernel {case.label:22s} B={'/'.join(map(str, case.batches))}: "
                 f"max_abs_err {err}")
         rec = records.get(case.name)
-        # time the first variant (Fq, NAF, G1, signed), row 12 and the skew
+        # time the first variant (Fq, NAF, G1, signed) and the TIMED ones
         if rec is None or case.label in TIMED:
             args = case.make_args(np.random.default_rng(SEED), main_b, dev)
             if case.label in SPREAD:
@@ -255,6 +268,8 @@ def phase_kernels(dev):
             bound_ms, bound_by = KC.bound_ms(*case.work(*args))
             line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                      f"bound {bound_ms:.4f} ms ({bound_by}) at B={main_b}")
+            if case.depth is not None:
+                line += f"; serial depth {case.depth(*args):.0f} products"
             if case.label in SPREAD:
                 line += f"; reps min {min(reps):.4f} ms, max {max(reps):.4f} ms"
         if rec is None:
@@ -268,11 +283,13 @@ def phase_kernels(dev):
     return records
 
 
-def check_launches(path: str, kernels, launches, plain):
-    """Fail unless every kernel of the path launched and no plain version
-    ran; return the path's launch counts."""
+def check_launches(path: str, kernels, launches, plain, absent=()):
+    """Fail unless every kernel of the path launched, none of `absent` did
+    and no plain version ran; return the path's launch counts."""
     missing = [k for k in kernels if launches[k] < 1]
     require(not missing, f"kernels not launched on the {path} path: {missing}")
+    extra = {k: launches[k] for k in absent if launches[k]}
+    require(not extra, f"kernels launched on the {path} path that it no longer uses: {extra}")
     ran_plain = {k: v for k, v in plain.items() if v}
     require(not ran_plain, f"plain versions ran on the {path} path: {ran_plain}")
     print(f"launches on the {path} path:", json.dumps(launches), flush=True)
@@ -488,7 +505,11 @@ def phase_msm(dev):
         require(SG.eq(small_out[K], want, ops), f"64-point msm G{K.COORDS} differs from the spec")
     print(f"MSM path: G1 n={MSM_SIZES[1]} and G2 n={MSM_SIZES[2]} = (sum k_i a_i) G; "
           f"64-point G1 and G2 MSMs = spec sums", flush=True)
-    return check_launches("MSM", counts.MSM_PATH, launches, plain), inputs
+    require(launches["msm_combine"] == len(out) + len(small_out),
+            f"{launches['msm_combine']} Horner + lane fold calls for "
+            f"{len(out) + len(small_out)} MSMs")
+    return check_launches("MSM", counts.MSM_PATH, launches, plain,
+                          absent=("point_add", "point_double")), inputs
 
 
 def phase_msm_timing(inputs, card):
@@ -510,7 +531,7 @@ def phase_msm_timing(inputs, card):
         acc = lambda: FU.msm_accumulate(nc, packed, dgs, nb, lanes=lanes)
         totals = acc()
         split = (cuda_ms(lambda: M.prepare(K, pts, ks, c), 3), cuda_ms(acc, 3),
-                 cuda_ms(lambda: M.combine(K, totals, c), 3))
+                 cuda_ms(lambda: FU.msm_combine(nc, totals, c), 3))
         offsets, order = FU.msm_bucket_sort(dgs, nb, True, lanes)
         words = FU.msm_point_words(packed)
         buckets = FU._msm_buckets(nc, words, dgs, offsets, order, nb, True, lanes)
@@ -535,14 +556,19 @@ def phase_msm_timing(inputs, card):
         want, plain_ms = cuda_once(lambda: FU.msm_bucket_reduce_plain(nc, buckets))
         checks.append(("msm_bucket_reduce", FU.msm_bucket_reduce(nc, buckets), want, plain_ms,
                        steps[3], KC.bound_ms(*KC.reduce_work(nc, buckets))))
+        want, plain_ms = cuda_once(lambda: FU.msm_combine_plain(nc, totals, c))
+        checks.append(("msm_combine", FU.msm_combine(nc, totals, c), want, plain_ms, split[2],
+                       KC.bound_ms(*KC.combine_work(nc, totals, c))))
         records[nc] = {}
         for name, got, want, plain_ms, ms, (b_ms, b_by) in checks:
             err = KC.max_abs_err(got, want)
             require(err == 0, f"{name}[g{nc}] on the MSM path's inputs (n={n}) "
                               f"differs from its plain version by {err}")
+            depth = (f", serial depth {KC.combine_depth(nc, totals, c):.0f} products"
+                     if name == "msm_combine" else "")
             print(f"kernel {name}[g{nc}] on the path's inputs n={n}: max_abs_err 0; "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-                  f"({b_by}) [{card}]", flush=True)
+                  f"({b_by}){depth} [{card}]", flush=True)
             records[nc][name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                  "bound_ms": b_ms, "bound_by": b_by}
         if nc == 1:     # the worst case at the path's size (held at n = 16384 in phase 2)
@@ -879,7 +905,10 @@ def phase_codec(dev, card):
         print(f"codec G{nc}: {CODEC_N} lanes, {int(ok.sum())} valid, every valid lane "
               f"round-trips to its affine limbs (z = 1); {len(bad)} planted invalid lanes masked off; "
               f"{len(lanes)} sampled and planted lanes = host codec", flush=True)
-    launches = check_launches("codec", counts.CODEC_PATH, launches, plain)
+    require(launches["point_mul"] == 1,
+            f"{launches['point_mul']} point_mul launches for one G2 decompression call")
+    launches = check_launches("codec", counts.CODEC_PATH, launches, plain,
+                              absent=("point_add", "point_double"))
 
     for K, (blobs, *_) in batches.items():
         nc = K.COORDS

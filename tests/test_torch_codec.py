@@ -193,3 +193,4 @@ def test_codec_path_reaches_every_kernel_with_valid_arguments(monkeypatch):
     assert sorted(k for k, v in counts.launches.items() if v) == sorted(counts.CODEC_PATH)
     assert not any(counts.plain_calls.values())
     assert counts.launches["fq_pow"] == 1
+    assert counts.launches["point_mul"] == 1               # the G2 subgroup check

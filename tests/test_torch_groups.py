@@ -1,7 +1,7 @@
 """The port's G1/G2 group law (bn254_tpu_torch.groups and the plain
-versions of the point_add / point_double kernels, queue rows 17-18) against
-the JAX package's groups on the CPU and the spec oracle, on the same
-inputs.  Comparisons are exact, limb for limb, wherever the formula is the
+versions of the point_add / point_double kernels, queue rows 17-18, and of
+their step loops, msm_combine and point_mul) against the JAX package's
+groups on the CPU and the spec oracle, on the same inputs.  Comparisons are exact, limb for limb, wherever the formula is the
 same; projective only against the spec."""
 
 import random
@@ -14,6 +14,7 @@ import torch
 from bn254_tpu import groups as JG
 from bn254_tpu import limbs as JL
 from bn254_tpu import pallas_fused as PF
+from bn254_tpu import tape
 from bn254_tpu.spec import group as SG
 from bn254_tpu.spec.constants import R
 from bn254_tpu_torch import convert
@@ -109,6 +110,82 @@ def test_scalar_mul_16_bits(group):
         assert_same(got, JG.scalar_mul(JK, jp, np.asarray(JL.stack_ints(ks)), num_bits=16))
 
 
+def _mul_unreduced(p, k, ops):
+    """The spec's double-and-add (SG.scalar_mul) without its reduction of k
+    mod r, which holds only inside the subgroup: k * p for any point."""
+    res = SG.zero(ops)
+    for i in reversed(range(k.bit_length())):
+        res = SG.double(res, ops)
+        if (k >> i) & 1:
+            res = SG.add(res, p, ops)
+    return res
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_msm_combine_plain_vs_jax_horner_and_roll_fold(group):
+    """msm_combine_plain equals, limb for limb, the JAX package's Horner
+    scan and roll fold (msm.py:288-318) spelled with its _double_jnp /
+    _add_jnp on the tape, at W = 4, c = 2, 8 lanes; the totals
+    (kernel_cases.combine_points) hold infinity windows, a window equal to
+    Horner's running value (coincide) and a P + (-P) fold pair.  The sum
+    equals the spec's."""
+    K, JK, params, _ = GROUPS[group]
+    ops, nc = params[0], K.COORDS
+    W, c, lanes = 4, 2, 8
+    tot = KC.combine_points(np.random.default_rng(SEED), nc, lanes, W, c)
+    both = [_both(K, JK, row) for row in tot]
+    got = FU.msm_combine_plain(nc, torch.stack([convert.pack(p) for _, p in both]), c)
+    assert got.shape == (3 * nc, 16, 1)
+
+    def horner_fold(*windows):
+        rec = tape.active()
+        res = windows[-1]
+        for w in range(W - 2, -1, -1):
+            for _ in range(c):
+                res = JG._double_jnp(JK, res)
+            res = JG._add_jnp(JK, res, windows[w])
+        k = 1
+        while k < lanes:     # jnp.roll(a, -k): lane i <- lane i + k
+            res = JG._add_jnp(JK, res, jax.tree.map(lambda a: rec.roll(a, k), res))
+            k *= 2
+        return res
+
+    want = on_tape(horner_fold, *[j for j, _ in both])
+    assert_same(convert.unpack_point(nc, got), jax.tree.map(lambda a: np.asarray(a)[:, :1], want))
+    total = SG.zero(ops)
+    for lane in range(lanes):
+        res = tot[-1][lane]
+        for w in range(W - 2, -1, -1):
+            for _ in range(c):
+                res = SG.double(res, ops)
+            res = SG.add(res, tot[w][lane], ops)
+        total = SG.add(total, res, ops)
+    assert SG.eq(G.decode_points(K, convert.unpack_point(nc, got))[0], total, ops)
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_point_mul_plain_vs_spec(group):
+    """point_mul_plain (through groups.scalar_mul) over r's 254 bits at B =
+    4 with k = 0, 1, r - 1, r equals the spec's double-and-add on points
+    in the subgroup and, for G2, on twist points outside it, where r * P
+    is not the identity (the codec's subgroup check)."""
+    K, JK, params, _ = GROUPS[group]
+    ops = params[0]
+    rng = random.Random(SEED + 7)
+    ks = [0, 1, R - 1, R]
+    sets = [[_mul(rng.randrange(1, R), params) for _ in ks]]
+    if group == "g2":
+        sets.append(KC.twist_points(rng, len(ks)))
+    k = torch.from_numpy(JL.stack_ints(ks).astype(np.int32))
+    for outside, pts in enumerate(sets):
+        got = G.decode_points(K, G.scalar_mul(K, G.encode_points(K, pts, "cpu"), k, 254))
+        for g, pt, kv in zip(got, pts, ks):
+            want = _mul_unreduced(pt, kv, ops)
+            assert SG.eq(g, want, ops), (outside, kv)
+            if kv == R:
+                assert SG.is_zero(g, ops) != bool(outside)
+
+
 def _emu(tree):
     """JAX [16, B] leaves -> in-kernel limb lists (as test_pallas_fused)."""
     return jax.tree.map(lambda a: [a[i] for i in range(16)], tree)
@@ -170,13 +247,60 @@ def test_affine_jacobian_curve_and_subgroup_checks():
     assert G.in_subgroup(G.G1, xy).tolist() == [True, True]
 
 
+def _check_combine_inputs(args, params):
+    """The combine's planted totals (kernel_cases.combine_points)."""
+    nc, totals, c = args
+    K, ops = (G.G1, params[0]) if nc == 1 else (G.G2, params[0])
+    W, lanes = totals.shape[0], totals.shape[-1]
+    assert c == M.MSM_FUSED_WINDOW[nc] and W == (254 + c) // c and lanes == 16
+    tot = [G.decode_points(K, convert.unpack_point(nc, t)) for t in totals]
+    for row in tot:
+        for pt in row:
+            assert SG.is_zero(pt, ops) or SG.on_curve(*SG.to_affine(pt, ops), params[2], ops)
+    assert SG.is_zero(tot[W - 1][1], ops) and SG.is_zero(tot[1][2], ops)
+    for lane, at in ((3, W - 3), (4, 0)):      # Horner meets its own running value
+        res = tot[W - 1][lane]
+        for w in range(W - 2, at - 1, -1):
+            for _ in range(c):
+                res = SG.double(res, ops)
+            if w > at:
+                res = SG.add(res, tot[w][lane], ops)
+        assert SG.eq(tot[at][lane], res, ops) and tot[at][lane] != res
+    for a, b in [(6, 7)] + [(j, 8 + j) for j in range(8)]:     # P + (-P) in the fold
+        assert all(SG.eq(tot[w][b], SG.neg(tot[w][a], ops), ops) for w in range(W))
+    dbl, add = KC._DBL[nc], KC._ADD[nc]
+    assert KC.combine_depth(*args) == (W - 1) * c * dbl + (W - 1 + 4) * add
+
+
+def _check_point_mul_inputs(args, params):
+    """The double-and-add's edge lanes (kernel_cases.POINT_MUL_EDGES)."""
+    nc, p, k, num_bits = args
+    K, ops = (G.G1, params[0]) if nc == 1 else (G.G2, params[0])
+    assert num_bits == 254 and k.shape == (16, 16) and k.dtype == torch.int32
+    ks = JL.ints_from_stack(k.numpy())
+    pts = G.decode_points(K, convert.unpack_point(nc, p))
+    for lane, (kv, kind) in enumerate(KC.POINT_MUL_EDGES):
+        assert ks[lane] == kv
+        pt = pts[lane]
+        assert SG.is_zero(pt, ops) == (kind == "inf")
+        if kind != "inf":
+            assert SG.on_curve(*SG.to_affine(pt, ops), params[2], ops)
+            outside = kind == "off" and nc == 2
+            assert SG.is_zero(_mul_unreduced(pt, R, ops), ops) != outside, lane
+    assert all(kv < R for kv in ks[len(KC.POINT_MUL_EDGES):])
+    assert KC.point_mul_depth(*args) == 254 * KC._DBL[nc] + max(
+        bin(kv).count("1") for kv in ks) * KC._ADD[nc]
+
+
 @pytest.mark.parametrize("label", [c.label for c in KC.CASES if c.name in
-                                   ("point_add", "point_double", "msm_accumulate")])
+                                   ("point_add", "point_double", "msm_accumulate",
+                                    "msm_combine", "point_mul")])
 def test_kernel_case_inputs(label):
-    """chip_smoke.py's inputs for rows 17-19 at a small size: the point
-    edge lanes are what they claim, the planted MSM duplicates share their
-    digits, the skewed MSM puts each window in one bucket, and the work
-    count gives a positive bound."""
+    """chip_smoke.py's inputs for rows 17-19 and the group law's step loops
+    at a small size: the point edge lanes are what they claim, the planted
+    MSM duplicates share their digits, the skewed MSM puts each window in
+    one bucket, the combine's totals and the double-and-add's scalars hold
+    their planted edges, and the work count gives a positive bound."""
     case = next(c for c in KC.CASES if c.label == label)
     size = 1000 if case.name == "msm_accumulate" else 16
     args = case.make_args(np.random.default_rng(1), size, "cpu")
@@ -186,6 +310,10 @@ def test_kernel_case_inputs(label):
     nc = args[0]
     K, _, params, _ = GROUPS[f"g{nc}"]
     ops = params[0]
+    if case.name == "msm_combine":
+        return _check_combine_inputs(args, params)
+    if case.name == "point_mul":
+        return _check_point_mul_inputs(args, params)
     if case.name == "msm_accumulate":
         _, pts, digits, nb, signed, lanes = args
         assert lanes == 200 and nb == (1 << (M.MSM_FUSED_WINDOW[nc] - 1)) + 1

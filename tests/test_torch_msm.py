@@ -183,10 +183,9 @@ def test_msm_path_reaches_every_kernel_with_valid_arguments(monkeypatch):
         assert offsets.dtype == torch.int32 and offsets.shape == (W, nb, lanes)
         assert order.dtype == torch.int32 and order.shape == (W, n // lanes, lanes)
         assert buckets.dtype == torch.int32 and buckets.shape == (W, nb - 1, 3 * nc, 16, lanes)
-    c1, c2 = M.MSM_FUSED_WINDOW[1], M.MSM_FUSED_WINDOW[2]
-    w1, w2 = (255 + c1 - 1) // c1, (255 + c2 - 1) // c2
-    assert counts.launches["point_double"] == (w1 - 1) * c1 + (w2 - 1) * c2
-    assert counts.launches["point_add"] == (w1 - 1) + (w2 - 1) + 2 * 7
+    # Horner + lane fold: one call an MSM, no one-op group-law launch
+    assert counts.launches["msm_combine"] == 2
+    assert counts.launches["point_add"] == counts.launches["point_double"] == 0
 
     pts = torch.zeros((2, 16, 256), dtype=torch.int32)
     dg = torch.zeros((3, 256), dtype=torch.int32)
@@ -200,6 +199,22 @@ def test_msm_path_reaches_every_kernel_with_valid_arguments(monkeypatch):
         FU.point_add(1, pts[:, :, ::2], pts[:, :, ::2])
     with pytest.raises(ValueError):
         FU.point_double(3, pts)
+    totals = torch.zeros((4, 3, 16, 128), dtype=torch.int32)
+    assert FU.msm_combine(1, totals, 6).shape == (3, 16, 1)
+    for args in ((1, totals[..., :100].contiguous(), 6),    # the fold needs 2^m lanes
+                 (2, totals, 6),                            # G2 totals have 6 coordinates
+                 (1, totals.long(), 6), (1, totals[0], 6), (1, totals, -1)):
+        with pytest.raises(ValueError):
+            FU.msm_combine(*args)
+    with pytest.raises(ValueError):                         # the plain version too
+        FU.msm_combine_plain(1, totals[..., :100].contiguous(), 6)
+    k = torch.zeros((16, 256), dtype=torch.int32)
+    assert FU.point_mul(1, pts[:1].expand(3, -1, -1).contiguous(), k, 254).shape == (3, 16, 256)
+    for args in ((1, pts[:1].expand(3, -1, -1).contiguous(), k, 257),   # at most 256 bits
+                 (1, pts[:1].expand(3, -1, -1).contiguous(), k[:, :128].contiguous(), 254),
+                 (2, pts[:1].expand(3, -1, -1).contiguous(), k, 254)):
+        with pytest.raises(ValueError):
+            FU.point_mul(*args)
     # no limit of the kernels' own on the tiles a lane or the buckets (c = 10)
     offsets, order = real_sort(torch.zeros((1, 40000), dtype=torch.int32), 5, True, 1)
     assert order.dtype == torch.int32 and order.shape == (1, 40000, 1)

@@ -243,9 +243,10 @@ def test_probe_entries_on_the_cpu(monkeypatch):
 
 
 def test_regcap_sweep_reads_the_entry_usage_and_needs_the_card(monkeypatch):
-    """regcap_sweep: the registers and stack of the case's entry (not of
-    another entry's or a device function's), from nvcc's -Xptxas -v log;
-    without a card it exits 1 before building anything."""
+    """regcap_sweep: the registers, stack and spill stores of the case's
+    entry (not of another entry's or a device function's, and of the G1 or
+    G2 instance of a group-law template as asked), from nvcc's -Xptxas -v
+    log; without a card it exits 1 before building anything."""
     from bn254_tpu_torch import regcap_sweep as RS
     log = "\n".join([
         "ptxas info    : Compiling entry function '_ZN4k_fq12_mulEv' for 'sm_90a'",
@@ -255,8 +256,19 @@ def test_regcap_sweep_reads_the_entry_usage_and_needs_the_card(monkeypatch):
         "ptxas info    : Function properties for _ZN14k_fq12_cyc_powEPKi",
         "    184 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 128 registers, used 0 barriers, 48000 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN11k_point_addIN5bn2543Fq2EEEvPKi' for 'sm_90a'",
+        "    1920 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 148 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN11k_point_addIN5bn2542FqEEEvPKi' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 166 registers, used 0 barriers",
     ])
-    assert RS._entry_usage(log, "k_fq12_cyc_pow") == "128 registers, 184 bytes stack"
+    assert (RS._entry_usage(log, "k_fq12_cyc_pow")
+            == "128 registers, 184 bytes stack, 0 bytes spill stores")
     assert RS._entry_usage(log, "k_msm_accumulate") == "not in the build log"
+    assert (RS._entry_usage(log, "k_point_add", "IN5bn2542Fq")
+            == "166 registers, 0 bytes stack, 0 bytes spill stores")
+    assert (RS._entry_usage(log, "k_point_add", "IN5bn2543Fq2")
+            == "148 registers, 1920 bytes stack, 8 bytes spill stores")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert RS.main([]) == 1
