@@ -16,7 +16,8 @@ the reference's error taxonomy (``errors.py``):
 A lane that is not ok holds the identity (z = 0).  Byte parsing (fixed
 slicing, the U512 divrem of the Fq2 packing) stays on the host; the field
 and curve math runs on the kernels: ``FQ.sqrt`` on row 5 (``fq_pow``),
-``tower.fq2_sqrt`` on rows 3-4, the curve equation and the canonical
+``tower.fq2_sqrt`` on one launch of its own (``fq2_sqrt``, where the JAX
+package scans rows 3-4), the curve equation and the canonical
 conversion on rows 1-4, the subgroup check r * P == inf on rows 17-18
 (``groups.scalar_mul``).  The entries run on the card unless
 ``device="cpu"``, where every wrapper takes its plain version.

@@ -19,6 +19,7 @@ KERNELS = (
     "msm_bucket_sort", "msm_bucket_reduce",
     "fq12_inv", "fq12_frob",
     "msm_combine", "point_mul",
+    "fq2_sqrt",
 )
 
 # The kernels each main path launches (chip_smoke.py asserts every one).
@@ -36,6 +37,7 @@ PROBE_PATH = ("chain_mont", "chain_tower",
               "fq12_sqr", "fq12_mul", "fq12_cyc_sqr")
 CODEC_PATH = ("mont_mul", "mont_sqr", "fq2_mul", "fq2_sqr",   # curve equation, y choice
               "fq_pow",                                       # the Fq sqrt
+              "fq2_sqrt",                                     # the Fq2 sqrt
               "point_mul")                                    # G2 subgroup check
 
 launches = dict.fromkeys(KERNELS, 0)

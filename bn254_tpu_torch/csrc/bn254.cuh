@@ -383,31 +383,6 @@ __device__ __forceinline__ void fq_sqr(Fq& r, const Fq& a) {
   redc_wide(r, t, fq_modulus());
 }
 
-// a^e over fused.py's pow_digits(e), the same digits for every lane: a
-// table of the odd powers a, a^3, ..., a^15 (one square, seven products),
-// res = a^d[0], then per further digit a square and, where d != 0 (odd),
-// a product by a^d.  A window of 4 bits: about 51 products for a 254-bit
-// exponent where the binary ladder takes one a set bit (109 for q - 2).
-// The table is indexed by the digit, so it lives in local memory.
-struct PowDigits { const int32_t* d; int n; };
-constexpr int kPowTable = 8;
-
-static __device__ __noinline__ void fq_pow_chain(Fq& r, const Fq& a, PowDigits e) {
-  Fq table[kPowTable], a2;
-  table[0] = a;
-  fq_sqr(a2, a);
-#pragma unroll 1
-  for (int i = 1; i < kPowTable; ++i) fq_mul(table[i], table[i - 1], a2);
-  Fq res = table[e.d[0] >> 1];
-#pragma unroll 1
-  for (int i = 1; i < e.n; ++i) {
-    fq_sqr(res, res);
-    const int d = e.d[i];
-    if (d) fq_mul(res, res, table[d >> 1]);
-  }
-  r = res;
-}
-
 __device__ __forceinline__ Fq2 fq2_mul_lazy_inl(const Fq2& a, const Fq2& b) {
   const Modulus m = fq_modulus();
   const uint32_t q_squared[16] = {BN254_FQ_Q_SQUARED};
@@ -437,6 +412,78 @@ __device__ __forceinline__ Fq2 fq2_mul_lazy_inl(const Fq2& a, const Fq2& b) {
 
 static __device__ __noinline__ void fq2_mul_lazy(Fq2& r, const Fq2& a, const Fq2& b) {
   r = fq2_mul_lazy_inl(a, b);
+}
+
+// ---------------------------------------------------------------------------
+// The coordinate field's ops, overloaded on Fq and Fq2, for the code that
+// is generic on its field (fq_pow_chain below, the group law of
+// groups.cuh).  The products take the card's fastest spelling of each: an
+// Fq square is fq_sqr (36 word products where a CIOS product takes 64), a
+// general Fq2 product the lazy one (three 512-bit products, two
+// reductions).  Both end fully reduced, so no limb changes.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void f_add(Fq& r, const Fq& a, const Fq& b) { fq_add(r, a, b); }
+__device__ __forceinline__ void f_sub(Fq& r, const Fq& a, const Fq& b) { fq_sub(r, a, b); }
+__device__ __forceinline__ void f_neg(Fq& r, const Fq& a) { fq_neg(r, a); }
+__device__ __forceinline__ void f_mul(Fq& r, const Fq& a, const Fq& b) { fq_mul(r, a, b); }
+__device__ __forceinline__ void f_sqr(Fq& r, const Fq& a) { fq_sqr(r, a); }
+__device__ __forceinline__ void f_set_zero(Fq& r) { r = fq_const_zero(); }
+__device__ __forceinline__ void f_set_one(Fq& r) { r = fq_const_one(); }
+
+__device__ __forceinline__ bool f_is_zero(const Fq& a) {
+  uint32_t o = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o |= a.v[j];
+  return o == 0;
+}
+
+__device__ __forceinline__ bool f_eq(const Fq& a, const Fq& b) {
+  uint32_t o = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o |= a.v[j] ^ b.v[j];
+  return o == 0;
+}
+
+__device__ __forceinline__ void f_add(Fq2& r, const Fq2& a, const Fq2& b) { fq2_add(r, a, b); }
+__device__ __forceinline__ void f_sub(Fq2& r, const Fq2& a, const Fq2& b) { fq2_sub(r, a, b); }
+__device__ __forceinline__ void f_neg(Fq2& r, const Fq2& a) { fq2_neg(r, a); }
+__device__ __forceinline__ void f_mul(Fq2& r, const Fq2& a, const Fq2& b) {
+  fq2_mul_lazy(r, a, b);
+}
+__device__ __forceinline__ void f_sqr(Fq2& r, const Fq2& a) { fq2_sqr(r, a); }
+__device__ __forceinline__ void f_set_zero(Fq2& r) { r.c0 = fq_const_zero(); r.c1 = fq_const_zero(); }
+__device__ __forceinline__ void f_set_one(Fq2& r) { r.c0 = fq_const_one(); r.c1 = fq_const_zero(); }
+__device__ __forceinline__ bool f_is_zero(const Fq2& a) { return f_is_zero(a.c0) && f_is_zero(a.c1); }
+__device__ __forceinline__ bool f_eq(const Fq2& a, const Fq2& b) {
+  return f_eq(a.c0, b.c0) && f_eq(a.c1, b.c1);
+}
+
+// a^e over fused.py's pow_digits(e), the same digits for every lane, in Fq
+// or Fq2: a table of the odd powers a, a^3, ..., a^15 (one square, seven
+// products), res = a^d[0], then per further digit a square and, where
+// d != 0 (odd), a product by a^d.  A window of 4 bits: about 51 products
+// for a 254-bit exponent where the binary ladder takes one a set bit (109
+// for q - 2).  The table is indexed by the digit, so it lives in local
+// memory: 256 bytes a thread in Fq, 512 in Fq2.
+struct PowDigits { const int32_t* d; int n; };
+constexpr int kPowTable = 8;
+
+template <class F>
+static __device__ __noinline__ void fq_pow_chain(F& r, const F& a, PowDigits e) {
+  F table[kPowTable], a2;
+  table[0] = a;
+  f_sqr(a2, a);
+#pragma unroll 1
+  for (int i = 1; i < kPowTable; ++i) f_mul(table[i], table[i - 1], a2);
+  F res = table[e.d[0] >> 1];
+#pragma unroll 1
+  for (int i = 1; i < e.n; ++i) {
+    f_sqr(res, res);
+    const int d = e.d[i];
+    if (d) f_mul(res, res, table[d >> 1]);
+  }
+  r = res;
 }
 
 // scale by an Fq element (fq2.rs:48)

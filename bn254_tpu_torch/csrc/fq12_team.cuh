@@ -30,7 +30,11 @@
 //                                     (k_miller_precompute): the Fq12
 //                                     square, the 024 fold, the G2
 //                                     doubling and mixed addition steps,
-//                                     scheduled by team_schedule.py
+//                                     scheduled by team_schedule.py; and,
+//                                     on Fq or Fq2 slots with a team of
+//                                     four, the GLV ladder's double and
+//                                     add (row 20, groups.cu
+//                                     k_glv_ladder; ladder_schedule.py)
 // Rows 8 (the fold) and 13 (the square) still run one thread a lane; the
 // table's square and fold rounds are their team form.
 #pragma once
@@ -39,9 +43,12 @@
 
 namespace bn254 {
 
-// words of an Fq2 slot in shared memory: 16, padded to 20 so that the
-// slots of a team and of neighbouring lanes start on staggered banks
-constexpr int kTeamSlot = 20;
+// words of a slot in shared memory: an Fq2 is 16, padded to 20, an Fq 8,
+// padded to 12, so that the slots of a team and of neighbouring lanes
+// start on staggered banks
+template <class F> constexpr int kSlotWords = 20;
+template <> constexpr int kSlotWords<Fq> = 12;
+constexpr int kTeamSlot = kSlotWords<Fq2>;
 // a lane's shared words: res (6 slots), the base (6), products (18)
 constexpr int kTeamLaneWords = 30 * kTeamSlot;
 
@@ -387,14 +394,18 @@ __device__ __forceinline__ Fq2 team_cyc_sqr_coeff(int j, const uint32_t* P, cons
 }
 
 // ---------------------------------------------------------------------------
-// Table-driven rounds (the Miller kernel, row 6).  The schedule
-// (bn254_tpu_torch/team_schedule.py, emitted into bn254_consts.h) lists a
-// step's rounds; in a round thread k computes the Fq2 products k, k + 6,
-// k + 12 and, after a __syncwarp, the linear combinations k, k + 6.  An
-// operand or combination is xi(sum of b) + sum of a, each sum its positive
-// slots added, then its negative slots subtracted, halved or doubled after
-// (post 1, 2); slot BN254_TEAM_BY stands for the addition's base y (Q's or
-// -Q's).  Every thread runs this one code; only the table differs.
+// Table-driven rounds (the Miller kernel, row 6, over Fq2 slots; the GLV
+// ladder, row 20, csrc/groups.cu, over Fq or Fq2 slots).  The schedule
+// (bn254_tpu_torch/team_schedule.py, ladder_schedule.py, emitted into
+// bn254_consts.h) lists a step's rounds; in a round thread k of a team of
+// T computes the products k, k + T, ... and, after a __syncwarp, the
+// linear combinations k, k + T, ....  An operand or combination is xi(sum
+// of b) + sum of a (b is empty over Fq), each sum its positive slots
+// added, then its negative slots subtracted, halved or doubled after
+// (post 1, 2); a slot at BN254_TEAM_VIRT + j or above stands for slot vb +
+// j of the lane (the Miller kernel: its addition's base y, Q's or -Q's;
+// the ladder: the table point its digit picks).  Every thread runs this
+// one code; only the table differs.
 // ---------------------------------------------------------------------------
 
 struct TeamLin {          // 16 bytes
@@ -428,69 +439,104 @@ __device__ __forceinline__ void fq_half(Fq& r, const Fq& a) {
   r.v[7] = t[7] >> 1;
 }
 
-__device__ __forceinline__ Fq2 ld2_term(const uint32_t* s, uint64_t t, int by) {
+// The slot field's ops, overloaded on Fq and Fq2: the carry-flag adds, the
+// product (fq_mul; the lazy Fq2 product), the halving
+__device__ __forceinline__ void ld_s(Fq& r, const uint32_t* s, int i) {
+  r = fq_load_words(s + kSlotWords<Fq> * i);
+}
+__device__ __forceinline__ void ld_s(Fq2& r, const uint32_t* s, int i) { r = ld2_s(s, i); }
+__device__ __forceinline__ void st_s(uint32_t* s, int i, const Fq& v) {
+  fq_store_words(s + kSlotWords<Fq> * i, v);
+}
+__device__ __forceinline__ void st_s(uint32_t* s, int i, const Fq2& v) { st2_s(s, i, v); }
+__device__ __forceinline__ Fq team_add(const Fq& a, const Fq& b) { return tfq_add(a, b); }
+__device__ __forceinline__ Fq2 team_add(const Fq2& a, const Fq2& b) { return tfq2_add(a, b); }
+__device__ __forceinline__ Fq team_sub(const Fq& a, const Fq& b) { return tfq_sub(a, b); }
+__device__ __forceinline__ Fq2 team_sub(const Fq2& a, const Fq2& b) { return tfq2_sub(a, b); }
+__device__ __forceinline__ Fq team_mul(const Fq& a, const Fq& b) {
+  Fq r;
+  fq_mul(r, a, b);
+  return r;
+}
+__device__ __forceinline__ Fq2 team_mul(const Fq2& a, const Fq2& b) { return team_fq2_mul(a, b); }
+__device__ __forceinline__ void team_half(Fq& a) { fq_half(a, a); }
+__device__ __forceinline__ void team_half(Fq2& a) {
+  fq_half(a.c0, a.c0);
+  fq_half(a.c1, a.c1);
+}
+__device__ __forceinline__ Fq team_xi_of(const Fq& a) { return a; }   // never called: no b over Fq
+__device__ __forceinline__ Fq2 team_xi_of(const Fq2& a) { return team_xi(a); }
+
+template <class F>
+__device__ __forceinline__ F ld_term(const uint32_t* s, uint64_t t, int vb) {
   const int i = (int)t & 63;
-  return ld2_s(s, i == BN254_TEAM_BY ? by : i);
+  F r;
+  ld_s(r, s, i >= BN254_TEAM_VIRT ? vb + (i - BN254_TEAM_VIRT) : i);
+  return r;
 }
 
 // acc + sum of the next np slots of t - sum of the nn after them (t moves
 // past them); with fresh, acc starts as the first positive slot (or 0)
-__device__ __forceinline__ Fq2 team_sum(const uint32_t* s, Fq2 acc, bool fresh, uint64_t& t,
-                                        int np, int nn, int by) {
+template <class F>
+__device__ __forceinline__ F team_sum(const uint32_t* s, F acc, bool fresh, uint64_t& t,
+                                      int np, int nn, int vb) {
   int i = 0;
   if (fresh) {
-    const Fq2 zero{fq_const_zero(), fq_const_zero()};
-    acc = np ? ld2_term(s, t, by) : zero;
     if (np) {
+      acc = ld_term<F>(s, t, vb);
       t >>= 6;
       i = 1;
+    } else {
+      f_set_zero(acc);
     }
   }
 #pragma unroll 1
-  for (; i < np; ++i, t >>= 6) acc = tfq2_add(acc, ld2_term(s, t, by));
+  for (; i < np; ++i, t >>= 6) acc = team_add(acc, ld_term<F>(s, t, vb));
 #pragma unroll 1
-  for (int j = 0; j < nn; ++j, t >>= 6) acc = tfq2_sub(acc, ld2_term(s, t, by));
+  for (int j = 0; j < nn; ++j, t >>= 6) acc = team_sub(acc, ld_term<F>(s, t, vb));
   return acc;
 }
 
-__device__ __forceinline__ Fq2 team_lin(const uint32_t* s, const TeamLin& c, int by) {
+template <class F>
+__device__ __forceinline__ F team_lin(const uint32_t* s, const TeamLin& c, int vb) {
   const int nbp = c.counts & 15, nbn = (c.counts >> 4) & 15;
   const int nap = (c.counts >> 8) & 15, nan = (c.counts >> 12) & 15, post = c.counts >> 16;
   const bool xi = nbp + nbn != 0;
   uint64_t t = c.terms;
-  Fq2 acc{fq_const_zero(), fq_const_zero()};
-  if (xi) acc = team_xi(team_sum(s, acc, true, t, nbp, nbn, by));
-  acc = team_sum(s, acc, !xi, t, nap, nan, by);
+  F acc;
+  f_set_zero(acc);
+  if (xi) acc = team_xi_of(team_sum(s, acc, true, t, nbp, nbn, vb));
+  acc = team_sum(s, acc, !xi, t, nap, nan, vb);
   if (post == 1) {
-    fq_half(acc.c0, acc.c0);
-    fq_half(acc.c1, acc.c1);
+    team_half(acc);
   } else if (post == 2) {
-    acc = tfq2_add(acc, acc);
+    acc = team_add(acc, acc);
   }
   return acc;
 }
 
-// one round of lane s's team; inactive threads only keep the barriers.
-// Each task is fetched one pass ahead, so that its load from the constant
-// bank (six addresses a warp, served one after another) overlaps the
-// product or combination before it.
-__device__ __forceinline__ void team_round(const TeamRound& r, int k, uint32_t* s, int by,
+// one round of lane s's team of T threads (thread k); inactive threads
+// only keep the barriers.  Each task is fetched one pass ahead, so that
+// its load from the constant bank (T addresses a warp, served one after
+// another) overlaps the product or combination before it.
+template <class F, int T>
+__device__ __forceinline__ void team_round(const TeamRound& r, int k, uint32_t* s, int vb,
                                            bool active) {
   const int mul_passes = r.passes[0], lin_passes = r.passes[1];
   TeamMul m = r.mul[k];
   TeamLin c = r.lin[k];
 #pragma unroll 1
   for (int p = 0; p < mul_passes; ++p) {
-    const TeamMul next = r.mul[p + 1 < mul_passes ? 6 * (p + 1) + k : k];
+    const TeamMul next = r.mul[p + 1 < mul_passes ? T * (p + 1) + k : k];
     if (active && m.x.dst != 0xFF)
-      st2_s(s, m.x.dst, team_fq2_mul(team_lin(s, m.x, by), team_lin(s, m.y, by)));
+      st_s(s, m.x.dst, team_mul(team_lin<F>(s, m.x, vb), team_lin<F>(s, m.y, vb)));
     m = next;
   }
   __syncwarp();
 #pragma unroll 1
   for (int p = 0; p < lin_passes; ++p) {
-    const TeamLin next = r.lin[p + 1 < lin_passes ? 6 * (p + 1) + k : k];
-    if (active && c.dst != 0xFF) st2_s(s, c.dst, team_lin(s, c, by));
+    const TeamLin next = r.lin[p + 1 < lin_passes ? T * (p + 1) + k : k];
+    if (active && c.dst != 0xFF) st_s(s, c.dst, team_lin<F>(s, c, vb));
     c = next;
   }
   __syncwarp();

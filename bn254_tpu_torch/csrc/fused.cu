@@ -1,11 +1,14 @@
 // Fused tower-op kernels (queue rows 5-11, 13-16), replacing the
-// bn254_tpu/pallas_fused.py kernels named beside each one below, and the
+// bn254_tpu/pallas_fused.py kernels named beside each one below, the
 // final exponentiation's Fq12 inverse and Frobenius maps (k_fq12_inv,
-// k_fq12_frob), which replace tower glue around row 3 on the TPU's path.
+// k_fq12_frob), which replace tower glue around row 3 on the TPU's path,
+// and the Fq2 square root (k_fq2_sqrt), which replaces the JAX package's
+// scans over rows 3-4.
 //
 // Two designs.  One thread a lane (rows 5, 7, 8, 10, 13-16: k_fq_pow,
 // k_g2_add_step, k_fq12_fold_line, k_fq12_cyc_sqr, k_fq12_sqr,
-// k_g2_dbl_step, k_fq2_mul_fused, k_fq2_sqr_fused; and k_fq12_inv;
+// k_g2_dbl_step, k_fq2_mul_fused, k_fq2_sqr_fused; and k_fq12_inv and
+// the codec's Fq2 square root k_fq2_sqrt;
 // k_fq12_frob runs one thread a coefficient): 128-thread blocks, the
 // ragged edge masked; a kernel reads its operands once, runs the whole
 // formula with every intermediate on the thread's registers and stack, and
@@ -78,6 +81,59 @@ __global__ void k_fq12_inv(const int32_t* __restrict__ digits, int n,
   load(x, a, B, lane);
   fq12_inv(x, x, PowDigits{digits, n});
   store(out, B, lane, x);
+}
+
+// tower.fq2_sqrt, the complex-method square root (fq2.rs:208-224), which
+// the JAX package runs as bn254_tpu/tower.py:151 fq2_sqrt: two fixed-
+// exponent powers as lax.scans over pallas_kernels.py's Fq2 square and
+// product (pk:181/175) and a few products around them.  On the card the
+// port ran those powers as a Python loop, about 727 one-op launches a
+// decompression; here one thread a lane runs the whole function in one
+// launch: a1 = a^((q-3)/4) and b = (alpha + 1)^((q-1)/2) on fq_pow_chain
+// in Fq2 (row 5's 4-bit window over fused.pow_digits, the Fq2 square and
+// the lazy product), a1 a, alpha = a1 (a1 a), alpha's norm conj(alpha)
+// alpha = (c0^2 + c1^2, 0) as two Fq squares, and the per-lane select of
+// the plain version (fused.fq2_sqrt_plain): i a1 a where alpha = -1, else
+// b a1 a; ok unless the norm is -1.  Every value is a fully reduced
+// residue, so root and ok are the plain version's bit for bit.  Bound by
+// the dependent products of one lane (operations): about 505 Fq2 squares
+// and 117 products, 1,310 products' work (kernel_cases.fq2_sqrt_work); at
+// the codec's 16,384 lanes that is 128 blocks, one an SM, so the chain's
+// latency, not the card's issue rate, sets the time (the next lever is a
+// team over each Fq2 product's three wide products).  The window's table
+// of 8 Fq2 (512 bytes a thread) stays in local memory, as fq_pow's does:
+// in shared memory (word-major, so a warp's reads are conflict-free, in
+// 64-thread blocks to fit) it measured no faster on the card (PERF.md),
+// since its 8 writes and about 57 reads a chain are little beside the
+// chain's products, and L1 serves the local reads.
+__global__ void k_fq2_sqrt(const int32_t* __restrict__ d_a1, int n_a1,
+                           const int32_t* __restrict__ d_b, int n_b,
+                           const int32_t* __restrict__ a, int32_t* __restrict__ root,
+                           uint8_t* __restrict__ ok, int B) {
+  const int lane = lane_index();
+  if (lane >= B) return;
+  Fq2 x, a1, a1a, alpha, b;
+  load(x, a, 0, B, lane);
+  fq_pow_chain(a1, x, PowDigits{d_a1, n_a1});
+  f_mul(a1a, a1, x);
+  f_mul(alpha, a1, a1a);
+  Fq n0, n1, norm, neg_one;
+  fq_sqr(n0, alpha.c0);
+  fq_sqr(n1, alpha.c1);
+  fq_add(norm, n0, n1);
+  fq_neg(neg_one, fq_const_one());
+  const bool alpha_is_neg1 = f_eq(alpha.c0, neg_one) && f_is_zero(alpha.c1);
+  Fq2 one;
+  f_set_one(one);
+  f_add(b, alpha, one);
+  fq_pow_chain(b, b, PowDigits{d_b, n_b});
+  f_mul(b, b, a1a);
+  if (alpha_is_neg1) {            // i (c0 + c1 i) = -c1 + c0 i
+    fq_neg(b.c0, a1a.c1);
+    b.c1 = a1a.c0;
+  }
+  store(root, 0, B, lane, b);
+  ok[lane] = !f_eq(norm, neg_one);
 }
 
 // tower.fq12_frob (fq12.rs:112-119) for powers 1-3, and power 6, the
@@ -188,7 +244,8 @@ __global__ void k_miller_precompute(const int32_t* __restrict__ kinds, int n,
     const int r0 = kind == 0 ? 0 : (other == 0 ? 5 : 4), r_end = kind == 0 ? 3 : 8;
 #pragma unroll 1
     for (int r = r0; r < r_end; ++r)
-      team_round(kMillerRounds[r == 2 && other != 0 ? 3 : r], k, s, by, t.active);
+      team_round<Fq2, kTeam>(kMillerRounds[r == 2 && other != 0 ? 3 : r], k, s, by,
+                             t.active);
   }
   if (t.active) {
     store(f_out, 2 * k, B, t.lane, ld2_s(s, k));
@@ -370,6 +427,11 @@ int bn254_fq_pow(const int32_t* digits, int n, const int32_t* a, int32_t* out, i
 int bn254_fq12_inv(const int32_t* digits, int n, const int32_t* a, int32_t* out, int B,
                    cudaStream_t stream) {
   BN254_LAUNCH(k_fq12_inv, digits, n, a, out);
+}
+
+int bn254_fq2_sqrt(const int32_t* d_a1, int n_a1, const int32_t* d_b, int n_b,
+                   const int32_t* a, int32_t* root, uint8_t* ok, int B, cudaStream_t stream) {
+  BN254_LAUNCH(k_fq2_sqrt, d_a1, n_a1, d_b, n_b, a, root, ok);
 }
 
 int bn254_fq12_frob(int power, const int32_t* a, int32_t* out, int B, cudaStream_t stream) {

@@ -102,17 +102,33 @@
 // products, 254 doubles and 101 adds a G2 lane (about 7,600 products'
 // work), which are also its serial depth.
 //
-// k_glv_ladder (pallas_fused.py _glv_call_impl, queue row 20): one thread
-// per lane runs all 128 steps.  The TPU kernel keeps res and the three
-// table points in VMEM; four G2 points are 768 bytes a thread, past the
-// register file beside the add's temporaries, so here only res stays with
-// the thread and each step reads the one table point its digit picks from
-// device memory (lane-minor, so the loads coalesce; the 9C x 16 words of a
-// lane's table stay in L1/L2 across the steps).  The digits differ per
-// lane ([nsteps, B], read one word a step), so a warp diverges only
-// inside point_add (coincide) and on the load.  Bound: the Montgomery
-// products, 7 + 16 a step for G1 and 16 + 43 for G2 (the add with a zero
-// digit returns res and needs none).
+// k_glv_ladder (pallas_fused.py _glv_call_impl, queue row 20): a team of
+// four threads of one warp a lane, eight lanes a warp, as rows 6 and 11
+// run (fq12_team.cuh team_round over ladder_schedule.py's rounds).  On one
+// thread a step is a chain of 23 dependent products (the double's 7, the
+// add's 16), G2's Fq2 operands passing through the stack, and each step
+// gathers the digit's table point from device memory.  Here the lane's
+// res, its three table points (loaded once) with their z^2 and z^3
+// (computed once: the same field values at every step) and ten
+// temporaries sit in shared memory as 28 slots of the coordinate field,
+// and a step is six rounds of at most four products (21 products, serial
+// depth six), each round's products spread over the team, then its sums,
+// the same code on every thread.  The add's branches stay the one-thread
+// add's, per lane, the whole team taking them: the add's rounds run only
+// where neither p nor q is at infinity (digit 0 picks q = (0, 1, 0)); a
+// lane whose add meets its own point (h = rr = 0 after the first add
+// round) runs the double's rounds on p instead of the last two; where p
+// is at infinity res becomes q.  Lanes past B and lanes that skip a round
+// still join every __syncwarp and __any_sync.  Shared memory: 28 slots of
+// 80 bytes (G2, Fq2 padded) or 48 (G1), 2,240 or 1,344 bytes a lane;
+// blocks of two warps (16 lanes, 35,840 bytes) for G2 and four (32 lanes,
+// 43,008 bytes) for G1, so shared memory holds 12 warps an SM for G2 (its
+// 148 registers allow 13) and 20 for G1.  G1 takes the team too: on the
+// card it ran faster than one thread a lane at 32768 lanes (PERF.md).  The
+// digits differ per lane ([nsteps, B], read one word a step).  Bound: the
+// Montgomery products, 7 + 16 a step for G1 and 16 + 43 for G2 (the add
+// with a zero digit returns res and needs none).
+#include "fq12_team.cuh"
 #include "groups.cuh"
 
 using namespace bn254;
@@ -238,28 +254,81 @@ __global__ void k_msm_bucket_reduce(const int32_t* __restrict__ buckets,
 }
 
 // pallas_fused.py _glv_call_impl: the joint Strauss-Shamir ladder.  res
-// starts at (0, 1, 0); per step it doubles, then adds the table point
-// its digit picks (1: p1, 2: p2, 3: p12 at coordinates 3C (d - 1) of pts;
-// 0: (0, 1, 0), which point_add returns res for unless res is at infinity
-// too, as the scan spelling's add).  A lane whose res meets its table
-// point takes point_add's coincide branch.
+// starts at (0, 1, 0); per step it doubles, then adds the table point its
+// digit picks (1: p1, 2: p2, 3: p12 at coordinates 3C (d - 1) of pts; 0:
+// (0, 1, 0)), with the unified add's three-way select in its order:
+// coincide -> double(p), q at infinity -> p, p at infinity -> q.
+constexpr int kLadderTeam = 4, kLadderTeamsPerWarp = 32 / kLadderTeam;
+template <class F> constexpr int kLadderWarps = 2;
+template <> constexpr int kLadderWarps<Fq> = 4;
+template <class F> constexpr int kLadderLanes = kLadderTeamsPerWarp * kLadderWarps<F>;
+template <class F> constexpr int kLadderLaneWords = BN254_LADDER_SLOTS * kSlotWords<F>;
+static __constant__ TeamRound kLadderRounds[BN254_LADDER_NROUNDS] = BN254_LADDER_ROUNDS;
+
 template <class F>
-__global__ void k_glv_ladder(const int32_t* __restrict__ digits, int nsteps,
-                             const int32_t* __restrict__ pts, int32_t* __restrict__ out, int B) {
-  constexpr int C = kCoords<F>;
-  const int lane = lane_index();
-  if (lane >= B) return;
-  Jac<F> res, inf, t;
-  f_set_zero(inf.x); f_set_one(inf.y); f_set_zero(inf.z);
-  res = inf;
-  for (int i = 0; i < nsteps; ++i) {
-    point_double(res, res);
-    const int d = digits[(size_t)i * B + lane];
-    if (d == 0) t = inf;
-    else load_pt(t, pts + (size_t)(d - 1) * 3 * C * 16 * B, B, lane);
-    point_add(res, res, t);
+__global__ void __launch_bounds__(32 * kLadderWarps<F>)
+k_glv_ladder(const int32_t* __restrict__ digits, int nsteps, const int32_t* __restrict__ pts,
+             int32_t* __restrict__ out, int B) {
+  constexpr int C = kCoords<F>, T = kLadderTeam;
+  __shared__ __align__(16) uint32_t s_lanes[kLadderLanes<F> * kLadderLaneWords<F>];
+  const int k = threadIdx.x % T, slot = threadIdx.x / T;
+  const int lane = blockIdx.x * kLadderLanes<F> + slot;
+  const bool valid = lane < B;
+  uint32_t* s = s_lanes + slot * kLadderLaneWords<F>;
+  F v;
+  if (valid) {         // res = (0, 1, 0); the table's 9 coordinates, k, k + 4, k + 8
+    if (k < 3) {
+      if (k == 1) f_set_one(v); else f_set_zero(v);
+      st_s(s, BN254_LADDER_SLOT_RX + k, v);
+    }
+#pragma unroll 1
+    for (int c = k; c < 9; c += T) {
+      load(v, pts, C * c, B, lane);
+      st_s(s, BN254_LADDER_SLOT_T1X + 5 * (c / 3) + c % 3, v);
+    }
   }
-  store_pt(out, B, lane, res);
+  __syncwarp();
+#pragma unroll 1
+  for (int r = 0; r < BN254_LADDER_R_D1; ++r)        // the table's z^2, z^3
+    team_round<F, T>(kLadderRounds[r], k, s, 0, valid);
+#pragma unroll 1
+  for (int i = 0; i < nsteps; ++i) {
+    const int d = valid ? digits[(size_t)i * B + lane] : 0;
+    const int vb = BN254_LADDER_SLOT_T1X + 5 * (d ? d - 1 : 0);   // q's slots
+    bool p_inf = false, add = false, coincide = false;
+    // j = 0-2: the double (every lane); 3-5: the add's rounds (3 where the
+    // add runs, 4-5 where it does not coincide); 6-8: the double again on
+    // the coincide lanes, if a lane of the warp has one
+#pragma unroll 1
+    for (int j = 0; j < 9; ++j) {
+      if (j == 6 && !__any_sync(0xFFFFFFFFu, coincide)) break;
+      const int r = (j < 3 || j >= 6 ? BN254_LADDER_R_D1 : BN254_LADDER_R_A1) + j % 3;
+      const bool active = j < 3 ? valid : j == 3 ? add : j < 6 ? add && !coincide : coincide;
+      team_round<F, T>(kLadderRounds[r], k, s, vb, active);
+      if (j == 2) {
+        ld_s(v, s, BN254_LADDER_SLOT_RX + 2);
+        p_inf = f_is_zero(v);
+        ld_s(v, s, vb + 2);
+        add = valid && !p_inf && d != 0 && !f_is_zero(v);
+      } else if (j == 3) {
+        F rr;
+        ld_s(v, s, BN254_LADDER_SLOT_S0);
+        ld_s(rr, s, BN254_LADDER_SLOT_S5);
+        coincide = add && f_is_zero(v) && f_is_zero(rr);
+      }
+    }
+    if (valid && p_inf && k < 3) {      // res = q: the table point, or (0, 1, 0)
+      if (d) ld_s(v, s, vb + k);
+      else if (k == 1) f_set_one(v);
+      else f_set_zero(v);
+      st_s(s, BN254_LADDER_SLOT_RX + k, v);
+    }
+    __syncwarp();
+  }
+  if (valid && k < 3) {
+    ld_s(v, s, BN254_LADDER_SLOT_RX + k);
+    store(out, C * k, B, lane, v);
+  }
 }
 
 // bn254_tpu/msm.py's Horner scan and roll fold over pallas_fused.py
@@ -374,10 +443,13 @@ int bn254_msm_bucket_reduce(int ncoords, const int32_t* buckets, int32_t* out, i
 
 int bn254_glv_ladder(int ncoords, const int32_t* digits, int nsteps, const int32_t* pts,
                      int32_t* out, int B, cudaStream_t stream) {
-  if (ncoords == 1) {
-    BN254_LAUNCH(k_glv_ladder<Fq>, digits, nsteps, pts, out);
-  }
-  BN254_LAUNCH(k_glv_ladder<Fq2>, digits, nsteps, pts, out);
+  if (ncoords == 1)
+    k_glv_ladder<Fq><<<(B + kLadderLanes<Fq> - 1) / kLadderLanes<Fq>, 32 * kLadderWarps<Fq>, 0,
+                       stream>>>(digits, nsteps, pts, out, B);
+  else
+    k_glv_ladder<Fq2><<<(B + kLadderLanes<Fq2> - 1) / kLadderLanes<Fq2>, 32 * kLadderWarps<Fq2>,
+                        0, stream>>>(digits, nsteps, pts, out, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Level 0 runs Horner over the W windows and each block's tree over the

@@ -19,50 +19,6 @@ template <class F> struct Jac { F x, y, z; };
 template <class F> constexpr int kCoords = sizeof(F) / sizeof(Fq);
 
 // ---------------------------------------------------------------------------
-// The coordinate field's ops, overloaded on Fq and Fq2.  The products take
-// the card's fastest spelling of each (bn254.cuh): an Fq square is fq_sqr
-// (36 word products where a CIOS product takes 64), a general Fq2 product
-// the lazy one (three 512-bit products, two reductions).  Both end fully
-// reduced, so no limb changes.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void f_add(Fq& r, const Fq& a, const Fq& b) { fq_add(r, a, b); }
-__device__ __forceinline__ void f_sub(Fq& r, const Fq& a, const Fq& b) { fq_sub(r, a, b); }
-__device__ __forceinline__ void f_neg(Fq& r, const Fq& a) { fq_neg(r, a); }
-__device__ __forceinline__ void f_mul(Fq& r, const Fq& a, const Fq& b) { fq_mul(r, a, b); }
-__device__ __forceinline__ void f_sqr(Fq& r, const Fq& a) { fq_sqr(r, a); }
-__device__ __forceinline__ void f_set_zero(Fq& r) { r = fq_const_zero(); }
-__device__ __forceinline__ void f_set_one(Fq& r) { r = fq_const_one(); }
-
-__device__ __forceinline__ bool f_is_zero(const Fq& a) {
-  uint32_t o = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) o |= a.v[j];
-  return o == 0;
-}
-
-__device__ __forceinline__ bool f_eq(const Fq& a, const Fq& b) {
-  uint32_t o = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) o |= a.v[j] ^ b.v[j];
-  return o == 0;
-}
-
-__device__ __forceinline__ void f_add(Fq2& r, const Fq2& a, const Fq2& b) { fq2_add(r, a, b); }
-__device__ __forceinline__ void f_sub(Fq2& r, const Fq2& a, const Fq2& b) { fq2_sub(r, a, b); }
-__device__ __forceinline__ void f_neg(Fq2& r, const Fq2& a) { fq2_neg(r, a); }
-__device__ __forceinline__ void f_mul(Fq2& r, const Fq2& a, const Fq2& b) {
-  fq2_mul_lazy(r, a, b);
-}
-__device__ __forceinline__ void f_sqr(Fq2& r, const Fq2& a) { fq2_sqr(r, a); }
-__device__ __forceinline__ void f_set_zero(Fq2& r) { r.c0 = fq_const_zero(); r.c1 = fq_const_zero(); }
-__device__ __forceinline__ void f_set_one(Fq2& r) { r.c0 = fq_const_one(); r.c1 = fq_const_zero(); }
-__device__ __forceinline__ bool f_is_zero(const Fq2& a) { return f_is_zero(a.c0) && f_is_zero(a.c1); }
-__device__ __forceinline__ bool f_eq(const Fq2& a, const Fq2& b) {
-  return f_eq(a.c0, b.c0) && f_eq(a.c1, b.c1);
-}
-
-// ---------------------------------------------------------------------------
 // Memory: a point is coordinates (x, y, z) at c, c + C, c + 2C (C = coords)
 // ---------------------------------------------------------------------------
 
@@ -88,7 +44,7 @@ __device__ __forceinline__ void store_pt(int32_t* base, int B, int lane, const J
 // through the stack.  For G1 (Fq) the two overloads below them inline the
 // bodies instead: 0-192 B of stack, 72-174 registers and 3-20 % faster in
 // every G1 kernel that calls them (k_point_add, k_point_double,
-// k_msm_combine, k_point_mul, k_glv_ladder) but k_msm_bucket_reduce,
+// k_msm_combine, k_point_mul) but k_msm_bucket_reduce,
 // whose two adds a step took 230 registers inlined and ran at half the
 // speed: it calls point_add<F>, the __noinline__ template, by name.  G2
 // keeps the calls (inlining them was not tried).

@@ -4,8 +4,9 @@ bn254_tpu/pallas_fused.py (queue rows 5-11, 13-20).
 Every wrapper takes packed contiguous ``[c, 16, B]`` int32 tensors (the
 ``pallas_fused.pack`` layout: the tower pytree's Fq leaves stacked in
 order).  For a CUDA tensor it launches its kernel from csrc/fused.cu (rows
-5-11, 13-16) or csrc/groups.cu (rows 17-20); for a CPU tensor it runs its
-plain version below; any other device raises.
+5-11, 13-16, and the Fq2 square root, which serves rows 3-4) or
+csrc/groups.cu (rows 17-20); for a CPU tensor it runs its plain version
+below; any other device raises.
 
 The plain versions are the same formulas as bn254_tpu.tower and
 pallas_fused's in-kernel helpers (kfq*, kg2_*), written over stacked
@@ -377,6 +378,46 @@ def _fq12_one(like):
 def fq_pow_plain(a, e: int):
     counts.plain_calls["fq_pow"] += 1
     return _pow_chain(a, e)
+
+
+def _fq2_pow(a, e: int):
+    """a^e of packed Fq2 [2, 16, B] for a static exponent e >= 1: MSB-first
+    square-and-multiply over the plain Fq2 square and product (rows 3-4's
+    formulas), from the leading 1 and multiplying only on set bits.  The
+    JAX package's scan (bn254_tpu/tower.py _fq2_pow_scan) starts from 1
+    and selects the product on every step; the canonical values are the
+    same."""
+    res = a
+    for i in reversed(range(e.bit_length() - 1)):
+        res = MK._fq2_sqr(res)
+        if (e >> i) & 1:
+            res = MK._fq2_mul(res, a)
+    return res
+
+
+def fq2_sqrt_plain(a):
+    """(root, ok) of packed Fq2 [2, 16, B]: the complex-method square root
+    (fq2.rs:208-224) as bn254_tpu/tower.py fq2_sqrt computes it,
+    branchless.  The reference's root wherever a is a residue (0
+    included); ok is False exactly on non-residues.
+
+    a1 = a^((q-3)/4), alpha = a1^2 a; ok unless alpha^(q+1) = -1, where
+    alpha^q is the Frobenius map, conjugation (the JAX package spells it
+    as a 254-bit power; the canonical values are the same).  Branch A,
+    alpha = -1: i * a1 a.  Branch B: (alpha + 1)^((q-1)/2) * a1 a.  Both
+    are computed and selected per lane, as in the JAX package."""
+    counts.plain_calls["fq2_sqrt"] += 1
+    a1 = _fq2_pow(a, C.FQ_MINUS3_DIV4)
+    a1a = MK._fq2_mul(a1, a)
+    alpha = MK._fq2_mul(a1, a1a)
+    a0 = MK._fq2_mul(_s(alpha[0], _neg(alpha[1]), dim=-3), alpha)
+    neg_one = _const2((C.Q - 1, 0), a)
+    is_nonres = (a0 == neg_one).flatten(0, 1).all(0)
+    alpha_is_neg1 = (alpha == neg_one).flatten(0, 1).all(0)
+    root_a = MK._fq2_mul(_const2((0, 1), a), a1a)
+    b = _fq2_pow(_add(alpha, _const2((1, 0), a)), C.FQ_MINUS1_DIV2)
+    root_b = MK._fq2_mul(b, a1a)
+    return torch.where(alpha_is_neg1, root_a, root_b), ~is_nonres
 
 
 def fq12_inv_plain(a):
@@ -813,6 +854,26 @@ def fq_pow(a, e: int):
     launch("fq_pow", batch, _digits_on(digits, a.device).data_ptr(), len(digits),
            a.data_ptr(), out.data_ptr())
     return out
+
+
+def fq2_sqrt(a):
+    """(root [2, 16, B], ok [B] bool) of packed Fq2 a [2, 16, B]: the whole
+    complex-method square root in one kernel, fq2_sqrt_plain's values.
+    Kernel: csrc/fused.cu k_fq2_sqrt (one thread a lane, both powers on
+    fq_pow's window over pow_digits), serving pallas_kernels.py's Fq2
+    square and product (pk:181/175) as bn254_tpu/tower.py fq2_sqrt runs
+    them."""
+    if not on_cuda(a):
+        return fq2_sqrt_plain(a)
+    batch = a.shape[-1]
+    check("fq2_sqrt", batch, a.device, (a, (2,)))
+    d_a1, d_b = (_digits_on(pow_digits(e), a.device)
+                 for e in (C.FQ_MINUS3_DIV4, C.FQ_MINUS1_DIV2))
+    root = torch.empty_like(a)
+    ok = torch.empty(batch, dtype=torch.bool, device=a.device)
+    launch("fq2_sqrt", batch, d_a1.data_ptr(), d_a1.numel(), d_b.data_ptr(), d_b.numel(),
+           a.data_ptr(), root.data_ptr(), ok.data_ptr())
+    return root, ok
 
 
 def fq12_inv(a):

@@ -18,7 +18,9 @@ tables whose adds meet their own point or its negative (``glv_args``);
 the combine's window totals plant infinity windows, Horner's own running
 value and P + (-P) fold pairs (``combine_points``), and the
 double-and-add's scalars r, r - 1, 0 and 1 on points in and outside the
-G2 subgroup (``point_mul_args``).
+G2 subgroup (``point_mul_args``); the Fq2 square root takes random
+elements and squares with 0, the alpha = -1 lanes, a non-residue and
+x^3 + b2 of real G2 points planted (``fq2_sqrt_args``).
 The lazy Fq2 product's inputs plant the extremes of its columns
 (``fq2_extremes``); the probes chain each op at its script's batch and
 chain length (``probe_args``).
@@ -42,6 +44,7 @@ import torch
 from . import fused as FU
 from . import glv as GLV
 from . import groups as G
+from . import ladder_schedule as LS
 from . import limbs as L
 from . import mont_kernels as MK
 from . import msm as M
@@ -351,6 +354,30 @@ def glv_args(rng, ncoords: int, batch: int, device):
     return ncoords, pts, digits
 
 
+def fq2_sqrt_args(rng, batch: int, device):
+    """(a [2, 16, B],) for the Fq2 square root: random elements (about half
+    of them non-residues) on the first half of the lanes, random squares
+    on the rest, and planted first lanes: 0, (1, 1), (q - 1, q - 1) (the
+    edges of ``residues``), (q - 1, 0) and (n, 0) for the least
+    non-residue n of Fq (alpha = -1: branch A), a non-residue of Fq2, and
+    x^3 + b2 of eight real G2 points (the codec's g2_rhs)."""
+    a = residues(rng, 2, batch, device)
+    half = batch // 2
+    a[..., half:] = MK._fq2_sqr(a[..., half:])
+    rnd = random.Random(int(rng.integers(1 << 62)))
+    n = next(x for x in range(2, 100) if SF.fq_sqrt(x) is None)
+    nonres = next(v for v in ((rnd.randrange(C.Q), rnd.randrange(C.Q)) for _ in range(64))
+                  if SF.fq2_sqrt(v) is None)
+    ops, bases = _spec_bases(2, rnd)
+    rhs = [SF.fq2_add(SF.fq2_mul(SF.fq2_sqr(x), x), C.B2)
+           for x, _ in (SG.to_affine(p, ops) for p in bases)]
+    planted = [(C.Q - 1, 0), (n, 0), nonres] + rhs
+    for lane, (c0, c1) in enumerate(planted[:max(batch - 3, 0)], start=3):
+        for c, v in enumerate((c0, c1)):
+            a[c, :, lane] = torch.from_numpy(MK.FQ_MOD.encode(v).astype(np.int32)).to(device)
+    return (a,)
+
+
 def fq2_extremes(rng, batch: int, device):
     """Fq2 operands (a, b) [2, 16, B] that drive the lazy product's column
     differences to their extremes (tests/test_pallas_fused.py's
@@ -422,8 +449,10 @@ _SQR = {1: FQ_SQR_PRODUCTS, 2: FQ2_SQR_PRODUCTS}
 
 # The group law (csrc/groups.cuh, the same formulas over Fq and Fq2):
 # unified add (generic formula, no double) 11 products and 5 squares,
-# dbl-2009-l 2 and 5, the mixed add 8 and 3
+# 10 and 4 where the second point's z^2 and z^3 are known, dbl-2009-l 2
+# and 5, the mixed add 8 and 3
 _ADD = {c: 11 * _MUL[c] + 5 * _SQR[c] for c in (1, 2)}
+_ADD_KNOWN_Z = {c: 10 * _MUL[c] + 4 * _SQR[c] for c in (1, 2)}
 _DBL = {c: 2 * _MUL[c] + 5 * _SQR[c] for c in (1, 2)}
 _MADD = {c: 8 * _MUL[c] + 3 * _SQR[c] for c in (1, 2)}
 # The one-thread tower and line formulas (csrc/bn254.cuh; rows 7, 8, 10,
@@ -472,6 +501,22 @@ def _w_fq_pow(a, e):
 FQ12_INV_PRODUCTS = 2 * 11 + 28.5 + 2 * FQ_SQR_PRODUCTS + 2 + 2 * 15
 
 
+def fq2_sqrt_work_per_lane() -> float:
+    """Products' work of one lane of the Fq2 square root: the two window
+    chains in Fq2 (fused.pow_chain_counts: each square an Fq2 square, each
+    product a lazy Fq2 product) for (q - 3) / 4 and (q - 1) / 2, the lazy
+    products a1 a, alpha and b a1 a, and alpha's norm (two Fq squares):
+    about 1,310."""
+    chains = sum(s * FQ2_SQR_PRODUCTS + p * FQ2_MUL_LAZY_PRODUCTS
+                 for s, p in map(FU.pow_chain_counts, (C.FQ_MINUS3_DIV4, C.FQ_MINUS1_DIV2)))
+    return chains + 3 * FQ2_MUL_LAZY_PRODUCTS + 2 * FQ_SQR_PRODUCTS
+
+
+def fq2_sqrt_work(a):
+    """Reads a, writes the root and one byte of ok a lane."""
+    return _per_lane(fq2_sqrt_work_per_lane(), a), _io(_lanes(a), 4) + _lanes(a)
+
+
 def _w_fq12_inv(a):
     return _per_lane(FQ12_INV_PRODUCTS + pow_chain_work(C.Q - 2), a), _io(_lanes(a), 24)
 
@@ -510,11 +555,25 @@ def _w_cyc_pow(a, digits):
     return int(_lanes(a) * fq2 * FQ2_MUL_LAZY_PRODUCTS), _io(_lanes(a), 24)
 
 
+# The team ladder's serial depth: the rounds of a step (ladder_schedule.py),
+# at most one product each on a thread
+LADDER_DEPTH = len(LS.ROUNDS) - LS.R_D1
+
+
+def glv_depth(ncoords, pts, digits):
+    """Products' work on one thread's chain: a product a round, six rounds
+    a step (the coincide branch's three more are rare)."""
+    return digits.shape[0] * LADDER_DEPTH * _MUL[ncoords]
+
+
 def glv_work(ncoords, pts, digits):
     """A double every step; an add only where the digit is not 0 (adding
-    (0, 1, 0) needs no product)."""
+    (0, 1, 0) needs no product), its table point's z^2 and z^3 known: they
+    are computed once a lane for each table point its digits pick."""
     steps, b = digits.shape
-    products = steps * b * _DBL[ncoords] + int((digits != 0).sum()) * _ADD[ncoords]
+    picked = sum(int((digits == d).any(0).sum()) for d in (1, 2, 3))
+    products = (steps * b * _DBL[ncoords] + int((digits != 0).sum()) * _ADD_KNOWN_Z[ncoords]
+                + picked * (_SQR[ncoords] + _MUL[ncoords]))
     return int(products), _io(b, 12 * ncoords) + 4 * steps * b
 
 
@@ -684,7 +743,7 @@ CASES = (
                lambda r: (_per_lane(_G2_DBL_STEP, r), _io(_lanes(r), 18))),
     *(KernelCase("glv_ladder", f"glv_ladder[g{nc}]", _GR_CU, f"{_PF}:1760", FU.glv_ladder,
                  FU.glv_ladder_plain, lambda rng, b, d, nc=nc: glv_args(rng, nc, b, d),
-                 glv_work)
+                 glv_work, depth=glv_depth)
       for nc in (1, 2)),
     KernelCase("fq2_mul_fused", "fq2_mul_fused", _FU_CU, f"{_PF}:990", FU.fq2_mul,
                FU.fq2_mul_lazy_plain, fq2_extremes,
@@ -718,6 +777,11 @@ CASES = (
                  lambda rng, b, d, p=p: (residues(rng, 12, b, d), p), _w_fq12_frob,
                  batches=_FINAL_EXP_BATCHES)
       for p in FU.FROB_POWERS),
+    # the codec's Fq2 square root in one launch (the JAX package's scans
+    # over rows 3-4)
+    KernelCase("fq2_sqrt", "fq2_sqrt", _FU_CU, f"{_PK}:181/175", FU.fq2_sqrt,
+               FU.fq2_sqrt_plain, fq2_sqrt_args, fq2_sqrt_work, batches=(16384, 1000, 3),
+               depth=lambda a: fq2_sqrt_work_per_lane()),
     # the group law's step loops, one launch each (rows 17-18's callers)
     *(KernelCase("msm_combine", f"msm_combine[g{nc}]", _GR_CU, f"{_PF}:769/789",
                  FU.msm_combine, FU.msm_combine_plain, combine_args(nc), combine_work,

@@ -36,8 +36,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-# Fq2 slots of a lane: name -> index.  BY is virtual: the base's y, QY for
-# kind 1 and QN (-Q's y) for kind 2.
+# Fq2 slots of a lane: name -> index.
 SLOT = {name: i for i, name in enumerate(
     ["F0", "F1", "F2", "F3", "F4", "F5",        # f = (c0.c0, c0.c1, c0.c2, c1.c0, c1.c1, c1.c2)
      "RX", "RY", "RZ",                          # R, Jacobian
@@ -48,7 +47,13 @@ SLOT = {name: i for i, name in enumerate(
     + [f"P{i}" for i in range(18)]              # product scratch
     + ["T0", "T1", "T2", "T3", "T4"])}          # temporaries
 N_SLOTS = len(SLOT)
-BY = 63
+TEAM = 6
+# A term's slot at VIRT + j or above is virtual: the kernel reads slot
+# vb + j, vb its argument for the lane (here the base's y BY, QY for kind 1
+# and QN (-Q's y) for kind 2; the GLV ladder's table point,
+# ladder_schedule.py).  Real slots stay below VIRT.
+VIRT = 56
+NAMES = {**SLOT, "BY": VIRT}
 NONE = 0xFF
 TERM_BITS, MAX_TERMS = 6, 10                    # a slot a term, 10 in 64 bits
 HALF, DOUBLE = 1, 2                             # Lin.post
@@ -227,24 +232,27 @@ def step_rounds(kinds, i: int) -> tuple:
     return (ADD_AFTER_DBL if i and int(kinds[i - 1]) == 0 else ADD), kind
 
 
-def slot(term: str, by: int = BY) -> tuple:
-    """(slot index, negate) of a term; BY stands for `by`."""
-    neg = term.startswith("-")
-    name = term.lstrip("-")
-    return (by if name == "BY" else SLOT[name]), neg
+def slot(term: str, slots: dict) -> tuple:
+    """(slot index, negate) of a term; ``slots`` maps a schedule's names,
+    virtual ones included (``NAMES`` for this one)."""
+    return slots[term.lstrip("-")], term.startswith("-")
 
 
 def reads(lin: Lin) -> set:
     return {t.lstrip("-") for t in lin.b + lin.a}
 
 
-def check_round(rnd: Round):
-    """Raise unless the round is race-free and fits the kernel's passes:
+def check_round(rnd: Round, team: int, slots: dict):
+    """Raise unless the round is race-free and fits the kernel's passes for
+    a team of `team` threads (fq12_team.cuh team_round: task k + team p on
+    thread k, at most 18 products and 12 combinations, whole passes):
     within each half (products, then combinations) no slot is written by
     two tasks, and no task reads a slot another task of that half writes
     (a task may read the slot it writes: it reads first)."""
-    if len(rnd.muls) > 18 or len(rnd.lins) > 12:
-        raise ValueError("a round has at most 18 products and 12 combinations")
+    most = (18 // team * team, 12 // team * team)
+    if len(rnd.muls) > most[0] or len(rnd.lins) > most[1]:
+        raise ValueError(f"a round of a {team}-thread team has at most {most[0]} products "
+                         f"and {most[1]} combinations")
     halves = ([(m.dst, reads(m.x) | reads(m.y)) for m in rnd.muls],
               [(c.dst, reads(c.lin)) for c in rnd.lins])
     for tasks in halves:
@@ -256,45 +264,56 @@ def check_round(rnd: Round):
                 if i != j and d in rd:
                     raise ValueError(f"task {j} reads {d}, which task {i} writes")
     for lin in [m.x for m in rnd.muls] + [m.y for m in rnd.muls] + [c.lin for c in rnd.lins]:
-        if sum(len(ts) for ts in _split(lin)) > MAX_TERMS:
+        if sum(len(ts) for ts in _split(lin, slots)) > MAX_TERMS:
             raise ValueError(f"more than {MAX_TERMS} terms in {lin}")
 
 
-def _split(lin: Lin) -> tuple:
+def _split(lin: Lin, slots: dict) -> tuple:
     """The kernel's four term lists: b's positive and negative slots, a's."""
-    sign = lambda ts, neg: [slot(t)[0] for t in ts if slot(t)[1] == neg]
+    sign = lambda ts, neg: [slot(t, slots)[0] for t in ts if slot(t, slots)[1] == neg]
     return sign(lin.b, False), sign(lin.b, True), sign(lin.a, False), sign(lin.a, True)
 
 
-def _c_lin(lin: Lin, dst) -> str:
+def _c_lin(lin: Lin, dst, slots: dict) -> str:
     """fq12_team.cuh TeamLin: the four lists' slots in one word, first
     lowest; their counts 4 bits each, then post; the destination."""
-    lists = _split(lin)
+    lists = _split(lin, slots)
     terms = sum(s << (TERM_BITS * i) for i, s in enumerate(sum(lists, [])))
     counts = sum(len(ts) << (4 * i) for i, ts in enumerate(lists)) | (lin.post << 16)
-    return f"{{0x{terms:016x}ull, 0x{counts:05x}u, {NONE if dst is None else SLOT[dst]}u}}"
+    dst = NONE if dst is None else slots[dst]
+    return f"{{0x{terms:016x}ull, 0x{counts:05x}u, {dst}u}}"
+
+
+def rounds_initializer(rounds, team: int, slots: dict, n_slots: int) -> str:
+    """The rounds as a C initializer of fq12_team.cuh's TeamRound array:
+    products and combinations by pass (task k + team p on thread k),
+    absent tasks with dst 0xFF; each round checked first, and the
+    schedule's `n_slots` real slots below VIRT, its virtual ones below
+    the term's 6 bits."""
+    if n_slots > VIRT or max(slots.values()) >= 1 << TERM_BITS:
+        raise ValueError(f"real slots must lie below {VIRT}, every slot below {1 << TERM_BITS}")
+    empty = _c_lin(Lin(), None, slots)
+    out = []
+    for rnd in rounds:
+        check_round(rnd, team, slots)
+        muls = [f"{{{_c_lin(m.x, m.dst, slots)}, {_c_lin(m.y, None, slots)}}}" for m in rnd.muls]
+        muls += [f"{{{empty}, {empty}}}"] * (18 - len(muls))
+        lins = [_c_lin(c.lin, c.dst, slots) for c in rnd.lins] + [empty] * (12 - len(rnd.lins))
+        passes = (-(-len(rnd.muls) // team), -(-len(rnd.lins) // team))
+        out.append(f"{{{{{', '.join(muls)}}}, {{{', '.join(lins)}}}, "
+                   f"{{{passes[0]}, {passes[1]}, 0, 0}}}}")
+    return "{ \\\n  " + ", \\\n  ".join(out) + " }"
 
 
 def header() -> str:
-    """The rounds as C initializers of fq12_team.cuh's TeamRound: products
-    and combinations by pass (task k + 6 p on thread k), absent tasks with
-    dst 0xFF."""
-    empty = _c_lin(Lin(), None)
-    rounds = []
-    for rnd in ROUNDS:
-        check_round(rnd)
-        muls = [f"{{{_c_lin(m.x, m.dst)}, {_c_lin(m.y, None)}}}" for m in rnd.muls]
-        muls += [f"{{{empty}, {empty}}}"] * (18 - len(muls))
-        lins = [_c_lin(c.lin, c.dst) for c in rnd.lins] + [empty] * (12 - len(rnd.lins))
-        passes = (-(-len(rnd.muls) // 6), -(-len(rnd.lins) // 6))
-        rounds.append(f"{{{{{', '.join(muls)}}}, {{{', '.join(lins)}}}, "
-                      f"{{{passes[0]}, {passes[1]}, 0, 0}}}}")
+    """The Miller rounds as C initializers (``rounds_initializer``) and the
+    slots the kernel names."""
     return "\n".join([
         f"#define BN254_TEAM_SLOTS {N_SLOTS}",
-        f"#define BN254_TEAM_BY {BY}",
+        f"#define BN254_TEAM_VIRT {VIRT}",
         *(f"#define BN254_SLOT_{name} {i}" for name, i in SLOT.items()
           if not (name[0] in "PT" and name[1:].isdigit())),
         f"#define BN254_MILLER_NROUNDS {len(ROUNDS)}",
-        f"#define BN254_MILLER_ROUNDS {{ \\\n  " + ", \\\n  ".join(rounds) + " }",
+        f"#define BN254_MILLER_ROUNDS {rounds_initializer(ROUNDS, TEAM, NAMES, N_SLOTS)}",
         "",
     ])

@@ -11,9 +11,9 @@ Where the JAX package runs a Pallas kernel on the TPU, this module always
 calls the port's kernel wrapper (which takes the plain version on the
 CPU): ``fq2_mul``/``fq2_sqr`` (rows 3-4), ``fq12_mul`` (row 9),
 ``fq12_cyclotomic_sqr`` (row 10), the cyclotomic z-ladders (row 11) and
-``fq12_sqr`` (row 13); ``fq2_sqrt``'s fixed-exponent powers are Python
-loops over the row 3-4 kernels.  ``fq12_inv``, ``fq12_frob`` and
-``fq12_conj``, tower glue on the TPU, are kernels of their own here, and
+``fq12_sqr`` (row 13).  ``fq2_sqrt`` (the JAX package's scans over rows
+3-4), ``fq12_inv``, ``fq12_frob`` and ``fq12_conj``, tower glue on the
+TPU, are kernels of their own here, and
 the final exponentiation runs on packed tensors from kernel to kernel.
 The rest composes them with plain tensor adds, as the JAX package
 composes them with jnp.
@@ -25,7 +25,6 @@ from . import fused as FU
 from . import mont_kernels as MK
 from .convert import pack, unpack_fq12
 from .fields import FQ
-from .spec import constants as C
 
 F = FQ  # the base-field context
 
@@ -120,44 +119,12 @@ def fq2_select(mask, a, b):
 
 
 def fq2_sqrt(a):
-    """(root, ok): the complex-method square root (fq2.rs:208-224),
-    branchless.  The reference's root wherever a is a residue (0
-    included); ok is False exactly on non-residues.
-
-    a1 = a^((q-3)/4), alpha = a1^2 a; ok unless alpha^(q+1) = -1, where
-    alpha^q is the Frobenius map, conjugation (the JAX package spells it
-    as a 254-bit power; the canonical values are the same).  Branch A,
-    alpha = -1: i * a1 a.  Branch B: (alpha + 1)^((q-1)/2) * a1 a.  Both
-    are computed and selected per lane, as in the JAX package."""
-    batch, device = a[0].shape[-1], a[0].device
-    a1 = _fq2_pow(a, C.FQ_MINUS3_DIV4)
-    a1a = fq2_mul(a1, a)
-    alpha = fq2_mul(a1, a1a)
-    a0 = fq2_mul(fq2_conj(alpha), alpha)
-    neg_one = fq2_const((C.Q - 1, 0), batch, device)
-    is_nonres = fq2_eq(a0, neg_one)
-    alpha_is_neg1 = fq2_eq(alpha, neg_one)
-    root_a = fq2_mul(fq2_const((0, 1), batch, device), a1a)
-    b = _fq2_pow(fq2_add(alpha, fq2_ones(batch, device)), C.FQ_MINUS1_DIV2)
-    root_b = fq2_mul(b, a1a)
-    return fq2_select(alpha_is_neg1, root_a, root_b), ~is_nonres
-
-
-def _fq2_pow(a, e: int):
-    """a^e for a static exponent: MSB-first square-and-multiply as a Python
-    loop over the fq2_sqr / fq2_mul kernels (rows 3-4), from the leading 1
-    and multiplying only on set bits.  The JAX package's scan starts from
-    1 and selects the product on every step; the canonical values are the
-    same.  About 1.5 launches per exponent bit (the JAX package has no
-    whole-ladder Fq2 kernel)."""
-    if e == 0:
-        return fq2_ones(a[0].shape[-1], a[0].device)
-    res = a
-    for i in reversed(range(e.bit_length() - 1)):
-        res = fq2_sqr(res)
-        if (e >> i) & 1:
-            res = fq2_mul(res, a)
-    return res
+    """(root, ok): the complex-method square root (fq2.rs:208-224), the
+    fq2_sqrt kernel (fused.fq2_sqrt: one launch, the plain version on the
+    CPU).  The reference's root wherever a is a residue (0 included); ok
+    is False exactly on non-residues."""
+    out, ok = FU.fq2_sqrt(pack(a))
+    return (out[0], out[1]), ok
 
 
 # ---------------------------------------------------------------------------

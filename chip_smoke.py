@@ -8,15 +8,17 @@ decompression, once on one NVIDIA GPU and check them.
 Phases (any failure raises, so the exit code is not 0):
 
 1. Print the card (nvidia-smi name and power limit), build every CUDA
-   kernel of counts.KERNELS (twenty-seven) from bn254_tpu_torch/csrc/ and
-   print the build's seconds and ptxas's registers and stack of the MSM
-   kernels, of the group law's four (one add, one double, the MSM's
-   Horner + lane fold and the double-and-add), of the three kernels that
-   run a team of six threads a lane (csrc/fq12_team.cuh): the cyclotomic
+   kernel of counts.KERNELS (twenty-eight) from bn254_tpu_torch/csrc/ and
+   print the build's seconds and ptxas's registers, stack and shared
+   memory of the MSM kernels, of the group law's five (one add, one
+   double, the MSM's Horner + lane fold, the double-and-add and the GLV
+   ladder, a team of four threads a lane), of the three kernels that run
+   a team of six threads a lane (csrc/fq12_team.cuh): the cyclotomic
    ladder (row 11), the Miller kernel (row 6) and the Fq12 product (row
-   9), and of the Fermat chain (row 5) and the final exponentiation's
-   Fq12 inverse and Frobenius maps; every other kernel runs one thread a
-   lane (every entry's numbers stay in bn254_tpu_torch/_build/build.log).
+   9), and of the Fermat chain (row 5), the Fq2 square root and the final
+   exponentiation's Fq12 inverse and Frobenius maps; every other kernel
+   runs one thread a lane (every entry's numbers stay in
+   bn254_tpu_torch/_build/build.log).
 2. Kernel vs plain version: each kernel on CUDA tensors made from a seed
    (bn254_tpu_torch/kernel_cases.py: field residues with 0, 1 and q - 1
    in the first lanes; real G1/G2 points with the group law's edge lanes;
@@ -27,21 +29,24 @@ Phases (any failure raises, so the exit code is not 0):
    planted coincide and P + (-P) lanes; the MSM's window totals with
    infinity windows, a window equal to Horner's running value and P + (-P)
    fold pairs; scalars r, r - 1, 0, 1 on points in and outside the G2
-   subgroup; the lazy Fq2 product's column extremes; the probes at their
+   subgroup; the Fq2 square root's planted lanes (0, alpha = -1, a
+   non-residue, x^3 + b2 of real G2 points) among random elements and
+   squares; the lazy Fq2 product's column extremes; the probes at their
    scripts' batches, 32768 and 8192) at B = 16384 and at a ragged B =
    1000 (n = 5000 for the MSM kernels; the Fq12 product also at B = 3,
    fewer lanes than a warp's five teams; the Fermat chain, the Fq12
    inverse, each Frobenius map and the double-and-add also at B = 3 and
-   at pairing_batch's B = 1, the double-and-add over 64 bits at 16384
+   at pairing_batch's B = 1, the Fq2 square root also at B = 3, the
+   double-and-add over 64 bits at 16384
    lanes and r's 254 at the others; the Horner + lane fold at the MSM's
    1024 lanes and at 128 and 8), against its plain PyTorch version on the
    same tensors.  Tolerance 0: these are integers.  The first variant of
    each kernel (Fq, NAF, G1, mul, fq_mul, signed, Frobenius power 1),
    fq12_cyc_pow's binary digits (TPU row 12), the conjugation, the skewed
-   MSM and the G2 variants of the group law's four timed at the main
+   MSM and the G2 variants of the group law's five timed at the main
    batch (CUDA events; the plain version once), beside the bound its
-   inputs give and, for the two step loops, the serial depth (products
-   on one lane's chain); the Miller kernel's line also gives the min and
+   inputs give and, for the step loops and the square root, the serial
+   depth (products on one lane's chain); the Miller kernel's line also gives the min and
    max of its 10 timed calls.
 3. Main path, with every launch and plain-call counter reset first:
    ``pairing`` on 16384 Jacobian pairs (z != 1) made by spec additions as
@@ -89,8 +94,9 @@ Phases (any failure raises, so the exit code is not 0):
    against the spec.  Then each kernel of the path (mont_mul for beta x,
    point_add for p1 + p2, the ladder) against its plain version on the
    path's own inputs, and ms per call and scalar-muls/s split into
-   decompose + table and the ladder beside its bound; the kernels line
-   takes row 20's times from the G1 inputs.
+   decompose + table and the ladder beside its bound and its serial
+   depth (six rounds a step); the kernels line takes row 20's times from
+   the G1 inputs.
 8. Prepared-G2 Miller loop, with the counters reset first:
    ``miller_loop(precompute(qa), pa)`` on the pairing's 16384 pairs equal
    to the fused Miller loop limb for limb, all 87 coefficient triples of 4
@@ -113,9 +119,13 @@ Phases (any failure raises, so the exit code is not 0):
    vectors.  Every valid lane round-trips to its point's affine limbs with
    z = 1, every planted invalid lane is masked off, and 16 sampled lanes
    of each group and the planted ones equal the host codec's result or
-   exception; the G2 subgroup check is one point_mul launch, and no
-   one-op add or double runs.  Then decompressions/s, split into host
-   parse, square root, y selection and (G2) subgroup check.
+   exception; the G2 square root is one fq2_sqrt launch (no per-bit
+   loop of one-op Fq2 squares and products: g2_rhs's x^2 and x^2 x are
+   their only launches), the G2 subgroup check one point_mul launch, and
+   no one-op add or double runs.  Then decompressions/s, split into host
+   parse, square root, y selection and (G2) subgroup check; the fq2_sqrt
+   kernel is held to its plain version on the path's own x^3 + b2 at
+   16384 lanes (tolerance 0) and timed there beside its bound.
 
 Each main path must launch every kernel it uses and no plain version.
 The line before the last is the kernels' JSON record (launches summed
@@ -138,10 +148,11 @@ SEED = 7
 ROW_12 = "fq12_cyc_pow[binary]"     # TPU row 12: row 11's kernel on binary digits
 # timed beside each kernel's first variant
 TIMED = (ROW_12, "msm_accumulate[g1,skew]", "fq12_frob[conj]", "point_add[g2]",
-         "point_double[g2]", "msm_combine[g2]", "point_mul[g2]")
+         "point_double[g2]", "msm_combine[g2]", "point_mul[g2]", "glv_ladder[g2]")
 PTXAS = ("k_msm_bucket_sort", "k_msm_accumulate", "k_msm_bucket_reduce", "k_fq12_cyc_pow",
          "k_miller_precompute", "k_fq12_mul", "k_fq_pow", "k_fq12_inv", "k_fq12_frob",
-         "k_point_add", "k_point_double", "k_msm_combine", "k_point_mul")
+         "k_point_add", "k_point_double", "k_msm_combine", "k_point_mul", "k_glv_ladder",
+         "k_fq2_sqrt")
 SPREAD = ("miller_precompute",)     # also the min and max of the timed reps (row 6)
 
 
@@ -158,8 +169,9 @@ def card_line() -> str:
 
 
 def ptxas_lines(log: str, kernels):
-    """ptxas's registers and stack of each entry whose name holds one of
-    `kernels`, from nvcc's -Xptxas -v log (G1/G2 by the template's Fq/Fq2)."""
+    """ptxas's registers, stack and shared memory of each entry whose name
+    holds one of `kernels`, from nvcc's -Xptxas -v log (G1/G2 by the
+    template's Fq/Fq2)."""
     out, entry, stack = [], None, {}
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -173,8 +185,10 @@ def ptxas_lines(log: str, kernels):
             if name:
                 field = "[Fq2]" if "Fq2" in entry else ("[Fq]" if "Fq" in entry else "")
                 regs = line.split("Used")[1].split("registers")[0].strip()
+                smem = line.split("bytes smem")[0].split(",")[-1].strip() \
+                    if "bytes smem" in line else "0"
                 out.append(f"ptxas {name}{field}: {regs} registers, "
-                           f"{stack.get(entry, '?')} bytes stack")
+                           f"{stack.get(entry, '?')} bytes stack, {smem} bytes shared")
     return out
 
 
@@ -680,7 +694,8 @@ def phase_glv_timing(inputs, card, records):
         bound, by = KC.bound_ms(*KC.glv_work(nc, table, digits))
         print(f"glv G{nc} B={GLV_N}: {total:.3f} ms = {GLV_N / total * 1e3:.0f} scalar-muls/s; "
               f"decompose + table {split[0]:.3f} ms, ladder {split[1]:.4f} ms (bound "
-              f"{bound:.4f} ms, {by}); beta x ({len(checks) - 2} mont_mul), p1 + p2 "
+              f"{bound:.4f} ms, {by}; serial depth {KC.LADDER_DEPTH} rounds a step, "
+              f"{digits.shape[0]} steps); beta x ({len(checks) - 2} mont_mul), p1 + p2 "
               f"(point_add) and the ladder = plain versions bit for bit (ladder plain "
               f"{plain_ms:.1f} ms) [{card}]", flush=True)
         if nc == 1:
@@ -859,14 +874,17 @@ def _codec_batch(K, dev, rng):
     return blobs, (x, y), expected, planted, bad
 
 
-def phase_codec(dev, card):
+def phase_codec(dev, card, records):
     """The decompression path once per group, with the counters reset
-    around it, checked lane by lane; then decompressions/s and its split.
-    Returns its launches."""
+    around it, checked lane by lane; then decompressions/s and its split,
+    and the fq2_sqrt kernel held to its plain version on the path's own
+    x^3 + b2.  Returns its launches."""
     import numpy as np
     from bn254_tpu_torch import codec_device as CD
     from bn254_tpu_torch import convert, counts
+    from bn254_tpu_torch import fused as FU
     from bn254_tpu_torch import groups as G
+    from bn254_tpu_torch import kernel_cases as KC
     from bn254_tpu_torch import tower as T
     from bn254_tpu_torch.fields import FQ
 
@@ -907,6 +925,10 @@ def phase_codec(dev, card):
               f"{len(lanes)} sampled and planted lanes = host codec", flush=True)
     require(launches["point_mul"] == 1,
             f"{launches['point_mul']} point_mul launches for one G2 decompression call")
+    require(launches["fq2_sqrt"] == 1 and launches["fq2_sqr"] == launches["fq2_mul"] == 1,
+            f"the G2 square root: {launches['fq2_sqrt']} fq2_sqrt, {launches['fq2_sqr']} "
+            f"fq2_sqr and {launches['fq2_mul']} fq2_mul launches for one G2 call (want 1 each: "
+            f"the kernel, and g2_rhs's x^2 and x^2 x)")
     launches = check_launches("codec", counts.CODEC_PATH, launches, plain,
                               absent=("point_add", "point_double"))
 
@@ -936,6 +958,16 @@ def phase_codec(dev, card):
                      cuda_ms(lambda: CD.g2_select_y(pre, y), 3),
                      cuda_ms(lambda: CD.g2_in_subgroup(pt), 3))
         sub = "" if split[2] is None else f", subgroup check {split[2]:.2f} ms"
+        if nc == 2:
+            rhs = convert.pack(CD.g2_rhs(xs))
+            err = KC.max_abs_err(FU.fq2_sqrt(rhs), FU.fq2_sqrt_plain(rhs))
+            require(err == 0, f"fq2_sqrt on the codec's inputs differs from its plain "
+                              f"version by {err}")
+            records["fq2_sqrt"]["max_abs_err"] = max(records["fq2_sqrt"]["max_abs_err"], err)
+            print(f"kernel fq2_sqrt on the codec's inputs n={CODEC_N}: max_abs_err 0", flush=True)
+            bound, by = KC.bound_ms(*KC.fq2_sqrt_work(rhs))
+            sub += (f"; the fq2_sqrt kernel alone {cuda_ms(lambda: FU.fq2_sqrt(rhs), 3):.4f} ms "
+                    f"(bound {bound:.4f} ms, {by})")
         print(f"codec G{nc} B={CODEC_N}: {total:.2f} ms = {CODEC_N / total * 1e3:.0f} "
               f"decompressions/s; host parse {parse_ms:.2f} ms, sqrt {split[0]:.2f} ms, "
               f"y selection {split[1]:.2f} ms{sub} [{card}]", flush=True)
@@ -974,7 +1006,7 @@ def main():
     del inputs
     miller_launches = phase_prepared_miller(dev, ps, qs, card)
     probe_launches = phase_probes(card, records)
-    codec_launches = phase_codec(dev, card)
+    codec_launches = phase_codec(dev, card, records)
     print(f"all phases: {time.perf_counter() - t0:.0f} s from the build's start", flush=True)
 
     paths = (launches, msm_launches, glv_launches, miller_launches, probe_launches,

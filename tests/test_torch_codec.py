@@ -98,11 +98,35 @@ def test_fq2_sqrt_vs_jax_with_both_branches():
     jroot, jok = JT.fq2_sqrt(a)
     _same(root, jroot)
     assert ok.tolist() == np.asarray(jok).tolist() == [True] * 3 + [False] * 3 + [True] * 4
-    a1 = T._fq2_pow(port_a, (Q - 3) // 4)
-    alpha = T.fq2_mul(a1, T.fq2_mul(a1, port_a))
-    assert T.fq2_decode(alpha)[-2:] == [(Q - 1, 0)] * 2
+    packed = convert.pack(port_a)
+    a1 = FU._fq2_pow(packed, (Q - 3) // 4)
+    alpha = MK._fq2_mul(a1, MK._fq2_mul(a1, packed))
+    assert T.fq2_decode(tuple(alpha))[-2:] == [(Q - 1, 0)] * 2
     for r, v in zip(T.fq2_decode(root), vals):
         assert v in nonres or SF.fq2_sqr(r) == v
+
+
+def test_fq2_sqrt_plain_vs_spec_on_planted_lanes():
+    """fused.fq2_sqrt_plain, the kernel's plain version, on its kernel case's
+    inputs at B = 16 (0, (1, 1), (q - 1, q - 1); (q - 1, 0) and (n, 0),
+    where alpha = -1 takes branch A; a non-residue; x^3 + b2 of real G2
+    points; random elements and random squares) against the spec's
+    fq2_sqrt lane by lane: ok exactly where the spec finds a root, and the
+    spec's root there."""
+    from bn254_tpu_torch import kernel_cases as KC
+    (a,) = KC.fq2_sqrt_args(np.random.default_rng(SEED + 3), 16, "cpu")
+    root, ok = FU.fq2_sqrt_plain(a)
+    vals = T.fq2_decode(tuple(a))
+    roots = T.fq2_decode(tuple(root))
+    for lane, (v, r, o) in enumerate(zip(vals, roots, ok.tolist())):
+        want = SF.fq2_sqrt(v)
+        assert o == (want is not None), lane
+        assert want is None or r == want, lane
+    assert vals[0] == (0, 0) and roots[0] == (0, 0) and ok[0]
+    assert not ok[5] and all(ok[6:14].tolist())
+    a1 = FU._fq2_pow(a[..., 3:5], (Q - 3) // 4)
+    alpha = MK._fq2_mul(a1, MK._fq2_mul(a1, a[..., 3:5]))
+    assert T.fq2_decode(tuple(alpha)) == [(Q - 1, 0)] * 2
 
 
 def _g1_blobs():
@@ -181,8 +205,11 @@ def test_codec_path_reaches_every_kernel_with_valid_arguments(monkeypatch):
     """Both entries with the wrappers taking their kernel branch on CPU
     tensors and the launch stubbed out: every wrapper's checks pass, the
     path reaches each kernel of CODEC_PATH, and no plain version runs."""
+    calls = {}
+
     def launch(name, batch, *args):
         counts.launches[name] += 1
+        calls[name] = (batch, args)
 
     for mod in (MK, FU):
         monkeypatch.setattr(mod, "on_cuda", lambda t: True)
@@ -194,3 +221,10 @@ def test_codec_path_reaches_every_kernel_with_valid_arguments(monkeypatch):
     assert not any(counts.plain_calls.values())
     assert counts.launches["fq_pow"] == 1
     assert counts.launches["point_mul"] == 1               # the G2 subgroup check
+    # the G2 square root: one launch, no per-bit loop over the one-op Fq2 kernels
+    # (g2_rhs's x^2 and x^2 x are their only launches)
+    assert counts.launches["fq2_sqrt"] == 1
+    assert counts.launches["fq2_sqr"] == counts.launches["fq2_mul"] == 1
+    batch, (_, n_a1, _, n_b, *ptrs) = calls["fq2_sqrt"]
+    assert batch == 3 and len(ptrs) == 3 and all(ptrs)
+    assert (n_a1, n_b) == (len(FU.pow_digits((Q - 3) // 4)), len(FU.pow_digits((Q - 1) // 2)))

@@ -404,7 +404,7 @@ def team_lin(state, lin, by):
     its negative slots subtracted; xi on b's sum; then the post step."""
     from bn254_tpu_torch import team_schedule as TS
     acc = torch.zeros_like(state[TS.SLOT["F0"]])
-    bp, bn, ap, an = ([by if i == TS.BY else i for i in ts] for ts in TS._split(lin))
+    bp, bn, ap, an = ([by if i == TS.VIRT else i for i in ts] for ts in TS._split(lin, TS.NAMES))
     for pos, neg, xi in ((bp, bn, True), (ap, an, False)):
         for i in pos:
             acc = FU._add(acc, state[i])
@@ -423,7 +423,7 @@ def team_round(state, rnd, by):
     """One round on the slot list `state` (Fq2 tensors [2, 16, B]), in place;
     the products are lazy Fq2 products, as the kernel's."""
     from bn254_tpu_torch import team_schedule as TS
-    TS.check_round(rnd)
+    TS.check_round(rnd, TS.TEAM, TS.NAMES)
     if rnd.muls:
         x = torch.stack([team_lin(state, m.x, by) for m in rnd.muls])
         y = torch.stack([team_lin(state, m.y, by) for m in rnd.muls])
@@ -494,11 +494,11 @@ def test_team_schedule_round_is_race_free(index):
     the kernel's passes, and the header holds it."""
     from bn254_tpu_torch import team_schedule as TS
     rnd = TS.ROUNDS[index]
-    TS.check_round(rnd)
+    TS.check_round(rnd, TS.TEAM, TS.NAMES)
     assert 0 < len(rnd.muls) <= 18 and 0 < len(rnd.lins) <= 12
     used = set().union(*(TS.reads(m.x) | TS.reads(m.y) | {m.dst} for m in rnd.muls),
                        *(TS.reads(c.lin) | {c.dst} for c in rnd.lins))
-    assert all(s == TS.BY or s < TS.N_SLOTS for s, _ in map(TS.slot, used))
+    assert all(s == TS.VIRT or s < TS.N_SLOTS for s, _ in (TS.slot(t, TS.NAMES) for t in used))
     assert TS.header().count("#define BN254_MILLER_ROUNDS") == 1
 
 
@@ -507,9 +507,10 @@ def test_team_schedule_refuses_a_race():
     from bn254_tpu_torch import team_schedule as TS
     bad = TS.Round((TS.Mul("P0", TS.A("F0"), TS.A("F1")), TS.Mul("P1", TS.A("P0"), TS.A("F1"))), ())
     with pytest.raises(ValueError):
-        TS.check_round(bad)
+        TS.check_round(bad, TS.TEAM, TS.NAMES)
     with pytest.raises(ValueError):
-        TS.check_round(TS.Round((), (TS.Comb("F0", TS.A("P0")), TS.Comb("F0", TS.A("P1")))))
+        TS.check_round(TS.Round((), (TS.Comb("F0", TS.A("P0")), TS.Comb("F0", TS.A("P1")))),
+                       TS.TEAM, TS.NAMES)
 
 
 def test_team_halving_equals_product_by_one_half():
