@@ -12,7 +12,8 @@ the oracle) through the port's ``Mod``: the Fq modulus, -q^-1 mod 2^32,
 q^2 (16 words: the lazy Fq2 product's offset) and the Montgomery forms
 of 1, 1/2 and the twist coefficient b2, the Frobenius factors of Fq12
 (``frob12_consts``), and the team schedules of the Miller kernel
-(``team_schedule.header``) and the GLV ladder (``ladder_schedule.header``).
+(``team_schedule.header``), the prepared Miller loop
+(``loop_schedule.header``) and the GLV ladder (``ladder_schedule.header``).
 (The Montgomery kernels take their modulus as an argument instead, so they
 serve Fr as well.)
 
@@ -31,7 +32,7 @@ from pathlib import Path
 
 import torch
 
-from . import counts, ladder_schedule, team_schedule
+from . import counts, ladder_schedule, loop_schedule, team_schedule
 from .limbs import Mod
 from .spec import constants as C
 from .spec import field as SF
@@ -74,6 +75,7 @@ _SIGS = {
     "msm_combine": "ipiipp",     # ncoords, totals, W, c, scratch, out (B = lanes)
     "point_mul": "ippip",        # ncoords, p, scalar limbs, num_bits, out
     "fq2_sqrt": "pipippp",       # digits of (q-3)/4, n, of (q-1)/2, n, a, root, ok
+    "miller_loop": "pipppp",     # square flags, n, coeffs [n, 6, 16, B], px, py, f
 }
 assert tuple(_SIGS) == counts.KERNELS
 
@@ -112,6 +114,7 @@ def consts_header() -> str:
         f"#define BN254_B2_C1 {_words(mont(C.B2[1]))}",
         f"#define BN254_FROB12 {frob}",
         team_schedule.header(),
+        loop_schedule.header(),
         ladder_schedule.header(),
     ])
 

@@ -20,6 +20,7 @@ KERNELS = (
     "fq12_inv", "fq12_frob",
     "msm_combine", "point_mul",
     "fq2_sqrt",
+    "miller_loop",
 )
 
 # The kernels each main path launches (chip_smoke.py asserts every one).
@@ -30,7 +31,8 @@ MSM_PATH = ("mont_mul", "mont_sqr", "fq2_mul", "fq2_sqr", "fq_pow",   # to_affin
 GLV_PATH = ("mont_mul",                  # endo: beta x
             "point_add", "glv_ladder")   # p1 + p2, the ladder
 PREPARED_MILLER_PATH = ("fq2_mul",       # the Frobenius bases
-                        "g2_dbl_step", "g2_add_step", "fq12_sqr", "fq12_fold_line")
+                        "g2_dbl_step", "g2_add_step",   # precompute
+                        "miller_loop")                  # the 87 folds and 64 squares
 PROBE_PATH = ("chain_mont", "chain_tower",
               # each op once as its own kernel, beside its in-chain rate
               "mont_mul", "mont_sqr", "fq2_mul_fused", "fq2_sqr_fused",

@@ -675,72 +675,6 @@ static __device__ __noinline__ void fq12_inv(Fq12& r, const Fq12& a, PowDigits i
   r.c0 = c0; r.c1 = c1;
 }
 
-// sparse line product, 13 Fq2 products (tower.fq12_mul_by_024,
-// fq12.rs:130-196): (x0, x2, x4) = (ell_0, ell_vv * px, ell_vw * py)
-static __device__ __noinline__ void fq12_mul_by_024(Fq12& r, const Fq12& a, const Fq2& x0,
-                                             const Fq2& x2, const Fq2& x4) {
-  const Fq2 &z0 = a.c0.c0, &z1 = a.c0.c1, &z2 = a.c0.c2;
-  const Fq2 &z3 = a.c1.c0, &z4 = a.c1.c1, &z5 = a.c1.c2;
-  Fq2 d0, d2, d4, t0, t1, t2, t3, t4, s0, s1, p;
-  Fq2 nz0, nz1, nz2, nz3, nz4, nz5;
-
-  fq2_mul(d0, z0, x0);
-  fq2_mul(d2, z2, x2);
-  fq2_mul(d4, z4, x4);
-  fq2_add(t2, z0, z4);
-  fq2_add(t1, z0, z2);
-  fq2_add(s0, z1, z3);
-  fq2_add(s0, s0, z5);
-
-  fq2_mul(s1, z1, x2);
-  fq2_add(t3, s1, d4);
-  fq2_mul_by_xi(t4, t3);
-  fq2_add(nz0, t4, d0);
-
-  fq2_mul(t3, z5, x4);
-  fq2_add(s1, s1, t3);
-  fq2_add(t3, t3, d2);
-  fq2_mul_by_xi(t4, t3);
-  fq2_mul(t3, z1, x0);
-  fq2_add(s1, s1, t3);
-  fq2_add(nz1, t4, t3);
-
-  fq2_add(t0, x0, x2);
-  fq2_mul(p, t1, t0);
-  fq2_sub(p, p, d0);
-  fq2_sub(t3, p, d2);
-  fq2_mul(t4, z3, x4);
-  fq2_add(s1, s1, t4);
-  fq2_add(nz2, t3, t4);
-
-  fq2_add(t0, z2, z4);
-  fq2_add(t1, x2, x4);
-  fq2_mul(p, t0, t1);
-  fq2_sub(p, p, d2);
-  fq2_sub(t3, p, d4);
-  fq2_mul_by_xi(t4, t3);
-  fq2_mul(t3, z3, x0);
-  fq2_add(s1, s1, t3);
-  fq2_add(nz3, t4, t3);
-
-  fq2_mul(t3, z5, x2);
-  fq2_add(s1, s1, t3);
-  fq2_mul_by_xi(t4, t3);
-  fq2_add(t0, x0, x4);
-  fq2_mul(p, t2, t0);
-  fq2_sub(p, p, d0);
-  fq2_sub(t3, p, d4);
-  fq2_add(nz4, t4, t3);
-
-  fq2_add(t0, x0, x2);
-  fq2_add(t0, t0, x4);
-  fq2_mul(p, s0, t0);
-  fq2_sub(nz5, p, s1);
-
-  r.c0.c0 = nz0; r.c0.c1 = nz1; r.c0.c2 = nz2;
-  r.c1.c0 = nz3; r.c1.c1 = nz4; r.c1.c2 = nz5;
-}
-
 // Granger-Scott squaring (fq12.rs:198-247): a true square only in the
 // cyclotomic subgroup, the same polynomial as tower.fq12_cyclotomic_sqr
 static __device__ __noinline__ void cyc_sq_pair(Fq2& ta, Fq2& tb, const Fq2& u, const Fq2& v) {
@@ -856,14 +790,6 @@ static __device__ __noinline__ void g2_add_step(G2J& r, Line& l, const Fq2& bx, 
   l.ell_vw = d;
   fq2_neg(l.ell_vv, e);
   r.x = nx; r.y = ny; r.z = nz;
-}
-
-// f * line, with ell_vv * px and ell_vw * py folded in
-static __device__ __noinline__ void fold_line(Fq12& f, const Line& l, const Fq& px, const Fq& py) {
-  Fq2 x2, x4;
-  fq2_scale(x2, l.ell_vv, px);
-  fq2_scale(x4, l.ell_vw, py);
-  fq12_mul_by_024(f, f, l.ell_0, x2, x4);
 }
 
 }  // namespace bn254

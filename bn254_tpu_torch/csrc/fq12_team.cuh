@@ -18,8 +18,8 @@
 // signs, so a warp does not run six different formulas one after the
 // other.  Every value is fully reduced after each op, so the outputs are
 // the single-thread formulas' (fq12_mul, fq12_cyclotomic_sqr, fq12_sqr,
-// fq12_mul_by_024, g2_dbl_step, g2_add_step) bit for bit: the same field
-// values, added in another grouping.
+// g2_dbl_step, g2_add_step) and the plain 024 fold's bit for bit: the
+// same field values, added in another grouping.
 //
 // The team steps here and their users:
 //   team_fq12_mul_products / _coeff   Fq12 product: row 9 (k_fq12_mul),
@@ -34,9 +34,12 @@
 //                                     on Fq or Fq2 slots with a team of
 //                                     four, the GLV ladder's double and
 //                                     add (row 20, groups.cu
-//                                     k_glv_ladder; ladder_schedule.py)
-// Rows 8 (the fold) and 13 (the square) still run one thread a lane; the
-// table's square and fold rounds are their team form.
+//                                     k_glv_ladder; ladder_schedule.py);
+//                                     the square and fold rounds over a
+//                                     slot map of their own, the
+//                                     prepared Miller loop and rows 13
+//                                     and 8 (fused.cu k_miller_loop;
+//                                     loop_schedule.py)
 #pragma once
 
 #include "bn254.cuh"
@@ -394,9 +397,10 @@ __device__ __forceinline__ Fq2 team_cyc_sqr_coeff(int j, const uint32_t* P, cons
 }
 
 // ---------------------------------------------------------------------------
-// Table-driven rounds (the Miller kernel, row 6, over Fq2 slots; the GLV
-// ladder, row 20, csrc/groups.cu, over Fq or Fq2 slots).  The schedule
-// (bn254_tpu_torch/team_schedule.py, ladder_schedule.py, emitted into
+// Table-driven rounds (the Miller kernel, row 6, and the prepared Miller
+// loop, row 8l, over Fq2 slots; the GLV ladder, row 20, csrc/groups.cu,
+// over Fq or Fq2 slots).  The schedule (bn254_tpu_torch/team_schedule.py,
+// loop_schedule.py, ladder_schedule.py, emitted into
 // bn254_consts.h) lists a step's rounds; in a round thread k of a team of
 // T computes the products k, k + T, ... and, after a __syncwarp, the
 // linear combinations k, k + T, ....  An operand or combination is xi(sum

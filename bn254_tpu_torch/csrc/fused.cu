@@ -2,27 +2,29 @@
 // bn254_tpu/pallas_fused.py kernels named beside each one below, the
 // final exponentiation's Fq12 inverse and Frobenius maps (k_fq12_inv,
 // k_fq12_frob), which replace tower glue around row 3 on the TPU's path,
-// and the Fq2 square root (k_fq2_sqrt), which replaces the JAX package's
-// scans over rows 3-4.
+// the Fq2 square root (k_fq2_sqrt), which replaces the JAX package's
+// scans over rows 3-4, and the prepared Miller loop (k_miller_loop), which
+// replaces its scan over rows 13 and 8.
 //
-// Two designs.  One thread a lane (rows 5, 7, 8, 10, 13-16: k_fq_pow,
-// k_g2_add_step, k_fq12_fold_line, k_fq12_cyc_sqr, k_fq12_sqr,
-// k_g2_dbl_step, k_fq2_mul_fused, k_fq2_sqr_fused; and k_fq12_inv and
-// the codec's Fq2 square root k_fq2_sqrt;
-// k_fq12_frob runs one thread a coefficient): 128-thread blocks, the
-// ragged edge masked; a kernel reads its operands once, runs the whole
-// formula with every intermediate on the thread's registers and stack, and
-// writes its result once, as the TPU kernels keep theirs in VMEM.  Bound:
-// integer multiply-adds (an Fq12 square is 12 lazy Fq2 products, about
-// 4,000 32x32->64 multiply-adds) and the local-memory traffic of the tower
-// state (f alone is 12 Fq = 96 words, past what the register file gives one
-// thread, and the __noinline__ tower functions pass their arguments through
-// the stack): ptxas gives fq_pow 48 registers and 288 bytes of stack (its
-// table), the one-thread Fq12 kernels 138-236 registers and 1-3 KB stack
-// frames (k_fq12_inv 214 and 1,952 B), k_fq12_frob 86 and none.
+// Two designs.  One thread a lane (rows 5, 7, 10, 14-16: k_fq_pow,
+// k_g2_add_step, k_fq12_cyc_sqr, k_g2_dbl_step, k_fq2_mul_fused,
+// k_fq2_sqr_fused; and k_fq12_inv and the codec's Fq2 square root
+// k_fq2_sqrt; k_fq12_frob runs one thread a coefficient): 128-thread
+// blocks, the ragged edge masked; a kernel reads its operands once, runs
+// the whole formula with every intermediate on the thread's registers and
+// stack, and writes its result once, as the TPU kernels keep theirs in
+// VMEM.  Bound: integer multiply-adds (an Fq12 square is 12 lazy Fq2
+// products, about 4,000 32x32->64 multiply-adds) and the local-memory
+// traffic of the tower state (f alone is 12 Fq = 96 words, past what the
+// register file gives one thread, and the __noinline__ tower functions
+// pass their arguments through the stack): ptxas gives fq_pow 48
+// registers and 288 bytes of stack (its table), the one-thread Fq12
+// kernels 138-236 registers and 1-3 KB stack frames (k_fq12_inv 214 and
+// 1,952 B), k_fq12_frob 86 and none.
 //
-// A team of six threads of one warp a lane (rows 6, 9, 11: k_miller_
-// precompute, k_fq12_mul, k_fq12_cyc_pow; fq12_team.cuh), five lanes to a
+// A team of six threads of one warp a lane (rows 6, 8, 9, 11, 13:
+// k_miller_precompute, k_miller_loop and its one-step launches for rows 8
+// and 13, k_fq12_mul, k_fq12_cyc_pow; fq12_team.cuh), five lanes to a
 // warp, threads 30 and 31 idle: the lane's Fq12 and its product scratch
 // sit in shared memory as Fq2 slots, each thread computes a sixth of an
 // op's Fq2 products, and after a __syncwarp one output coefficient, so no
@@ -32,14 +34,16 @@
 // memory:
 //   k_miller_precompute  104 registers, no stack; 41 slots = 3,280 B a
 //                        lane, 32,800 B a block of 2 warps (static)
+//   k_miller_loop        27 slots = 2,160 B a lane, 43,200 B a block of
+//                        4 warps (static)
 //   k_fq12_mul           180 registers, no stack; 2,400 B a lane, 48,000
 //                        B a block of 4 warps (static)
 //   k_fq12_cyc_pow       232 registers, no stack; the same 48,000 B
 // The Miller kernel is limited to 12-13 warps an SM by its shared memory,
-// the other two to 8 by their registers; register caps spill and run
-// slower (regcap_sweep.py, PERF.md).  Step kinds and ladder digits come as
-// a small int32 device array that every lane reads in the same order, so
-// a warp never diverges on them.
+// k_fq12_mul and k_fq12_cyc_pow to 8 by their registers; register caps
+// spill and run slower (regcap_sweep.py, PERF.md).  Step kinds, square
+// flags and ladder digits come as a small int32 device array that every
+// lane reads in the same order, so a warp never diverges on them.
 #include "bn254.cuh"
 #include "fq12_team.cuh"
 
@@ -310,33 +314,99 @@ __global__ void k_fq2_sqr_fused(const int32_t* __restrict__ a, int32_t* __restri
   store(out, 0, B, lane, x);
 }
 
-// pallas_fused.py _call_impl("fq12_sqr")
-__global__ void k_fq12_sqr(const int32_t* __restrict__ a, int32_t* __restrict__ out, int B) {
-  int lane = lane_index();
-  if (lane >= B) return;
-  Fq12 x;
-  load(x, a, B, lane);
-  fq12_sqr(x, x);
-  store(out, B, lane, x);
+// The prepared Miller loop (pairing.miller_loop, mod.rs:580-606), which
+// the JAX package runs as one lax.scan over rows 13 (pallas_fused.py
+// _call_impl("fq12_sqr")) and 8 (_call_impl("fq12_fold_line")) inside one
+// XLA program: f = 1, then per step f = f^2 where the step's flag is set
+// and f = f * line, ell_vv scaled by px and ell_vw by py.  One launch runs
+// all the steps, so f stays in shared memory from the first to the last
+// and only the lines come from device memory.  A team of six threads a
+// lane over loop_schedule.py's rounds (row 9's geometry, 20 lanes a
+// block): f, (px, 0), (py, 0), two sets of line slots and 13 product
+// slots, 27 Fq2 slots (2,160 bytes) a lane in static shared memory
+// (43,200 bytes a block).  ptxas caps that take 4 or 5 blocks an SM (128
+// registers, or 96 with spills) ran the loop 5-22 % slower than its
+// 132-146 registers at 3 blocks.  Thread k moves Fq k of each step's line (ell_0, ell_vw, ell_vv) raw into
+// its slot the step before it is needed (the lines alternate between the
+// two sets), and the step before scales it by px, py in its fold round's
+// spare tasks: 390 product passes a lane, where a scaling round of its
+// own takes 476 and measured 15 % slower (PERF.md).  The line's load
+// latency hides behind the other warps of the SM: holding the line after
+// the next one in registers measured no faster.  Bound by operations: 64
+// squares and 87 folds, 5,095.5 products' work a lane
+// (kernel_cases.loop_work); the lines are 6 Fq a lane a step.
+//
+// The one-op kernels of rows 8 and 13 are launches of this kernel, one
+// step each: with f_in and a line but no flags (the px, py scalings as a
+// round of their own, then the fold), and with f_in and no line (the
+// square).  flags == nullptr: no step squares, unless c == nullptr;
+// f_in == nullptr: f starts at 1.
+constexpr int kLoopWarps = 4;        // 2 timed 1.4 % slower
+constexpr int kLoopLanes = kTeamsPerWarp * kLoopWarps;
+constexpr int kLoopLaneWords = BN254_LOOP_SLOTS * kTeamSlot;
+static __constant__ TeamRound kLoopRounds[BN254_LOOP_NROUNDS] = BN254_LOOP_ROUNDS;
+
+// Fq k of step i's line in c [n, 6, 16, B] into the line set starting at
+// slot `set`: half k & 1 of its slot (loop_schedule.LINE_SLOT: ell_0 ->
+// x0, ell_vw -> x4, ell_vv -> x2)
+__device__ __forceinline__ void line_put(uint32_t* s, int set, const int32_t* c, int i, int k,
+                                         int B, int lane) {
+  Fq v;
+  load(v, c + (size_t)i * 6 * 16 * B, k, B, lane);
+  const int slot = set + ((BN254_LOOP_LINE_SLOTS >> (2 * k)) & 3);
+  fq_store_words(s + kTeamSlot * slot + 8 * (k & 1), v);
 }
 
-// pallas_fused.py _call_impl("fq12_fold_line")
-__global__ void k_fq12_fold_line(const int32_t* __restrict__ f_in,
-                                 const int32_t* __restrict__ c,
-                                 const int32_t* __restrict__ px_in,
-                                 const int32_t* __restrict__ py_in,
-                                 int32_t* __restrict__ out, int B) {
-  int lane = lane_index();
-  if (lane >= B) return;
-  Fq12 f;
-  load(f, f_in, B, lane);
-  Line l;
-  load3(l.ell_0, l.ell_vw, l.ell_vv, c, B, lane);
-  Fq px, py;
-  load(px, px_in, 0, B, lane);
-  load(py, py_in, 0, B, lane);
-  fold_line(f, l, px, py);
-  store(out, B, lane, f);
+__global__ void k_miller_loop(const int32_t* __restrict__ flags, int n,
+                              const int32_t* __restrict__ f_in,
+                              const int32_t* __restrict__ c,
+                              const int32_t* __restrict__ px,
+                              const int32_t* __restrict__ py,
+                              int32_t* __restrict__ f_out, int B) {
+  __shared__ __align__(16) uint32_t s_lanes[kLoopLanes * kLoopLaneWords];
+  const TeamThread t = team_thread(kLoopLanes, B);
+  const int k = t.k;
+  const bool line = c != nullptr;
+  uint32_t* s = s_lanes + (t.active ? t.slot : 0) * kLoopLaneWords;
+  if (t.active) {      // f = f_in or 1; (px, 0), (py, 0)
+    const Fq zero = fq_const_zero();
+    Fq2 v{k == 0 ? fq_const_one() : zero, zero};
+    if (f_in) load(v, f_in, 2 * k, B, t.lane);
+    st2_s(s, BN254_LOOP_SLOT_F0 + k, v);
+    if (line && k < 2) {
+      load(v.c0, k ? py : px, 0, B, t.lane);
+      st2_s(s, BN254_LOOP_SLOT_PX + k, Fq2{v.c0, zero});
+    }
+    if (line) line_put(s, BN254_LOOP_SLOT_L0, c, 0, k, B, t.lane);
+  }
+  __syncwarp();
+  if (line) team_round<Fq2, kTeam>(kLoopRounds[BN254_LOOP_R_SCALE], k, s, 0, t.active);
+  // loop_schedule.step_rounds: the square where the step squares, then
+  // the fold of step i's set (L for even i, M for odd), which scales line
+  // i + 1, put in the other set before it
+  for (int i = 0; i < n; ++i) {
+    const int set = i & 1;
+    if (line && i + 1 < n) {
+      if (t.active)
+        line_put(s, set ? BN254_LOOP_SLOT_L0 : BN254_LOOP_SLOT_M0, c, i + 1, k, B, t.lane);
+      __syncwarp();
+    }
+    if (!line || (flags && flags[i]))
+      team_round<Fq2, kTeam>(kLoopRounds[BN254_LOOP_R_SQR], k, s, 0, t.active);
+    if (line)
+      team_round<Fq2, kTeam>(
+          kLoopRounds[(i + 1 < n ? BN254_LOOP_R_FOLD_SCALE : BN254_LOOP_R_FOLD) + set], k, s,
+          0, t.active);
+  }
+  if (t.active) store(f_out, 2 * k, B, t.lane, ld2_s(s, BN254_LOOP_SLOT_F0 + k));
+}
+
+int launch_loop(const int32_t* flags, int n, const int32_t* f_in, const int32_t* c,
+                const int32_t* px, const int32_t* py, int32_t* f_out, int B,
+                cudaStream_t stream) {
+  k_miller_loop<<<(B + kLoopLanes - 1) / kLoopLanes, 32 * kLoopWarps, 0, stream>>>(
+      flags, n, f_in, c, px, py, f_out, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // pallas_fused.py _call_impl("fq12_mul"): a team of six threads a lane,
@@ -466,15 +536,6 @@ int bn254_fq2_sqr_fused(const int32_t* a, int32_t* out, int B, cudaStream_t stre
   BN254_LAUNCH(k_fq2_sqr_fused, a, out);
 }
 
-int bn254_fq12_sqr(const int32_t* a, int32_t* out, int B, cudaStream_t stream) {
-  BN254_LAUNCH(k_fq12_sqr, a, out);
-}
-
-int bn254_fq12_fold_line(const int32_t* f, const int32_t* c, const int32_t* px,
-                         const int32_t* py, int32_t* out, int B, cudaStream_t stream) {
-  BN254_LAUNCH(k_fq12_fold_line, f, c, px, py, out);
-}
-
 int bn254_fq12_mul(const int32_t* a, const int32_t* b, int32_t* out, int B,
                    cudaStream_t stream) {
   k_fq12_mul<<<(B + kCycLanes - 1) / kCycLanes, 32 * kCycWarps, 0, stream>>>(a, b, out, B);
@@ -490,6 +551,21 @@ int bn254_fq12_cyc_pow(const int32_t* digits, int n, const int32_t* a, int32_t* 
   k_fq12_cyc_pow<<<(B + kCycLanes - 1) / kCycLanes, 32 * kCycWarps, 0, stream>>>(digits, n, a,
                                                                                 out, B);
   return static_cast<int>(cudaGetLastError());
+}
+
+int bn254_miller_loop(const int32_t* flags, int n, const int32_t* c, const int32_t* px,
+                      const int32_t* py, int32_t* f, int B, cudaStream_t stream) {
+  return launch_loop(flags, n, nullptr, c, px, py, f, B, stream);
+}
+
+// rows 13 and 8 as one step of k_miller_loop
+int bn254_fq12_sqr(const int32_t* a, int32_t* out, int B, cudaStream_t stream) {
+  return launch_loop(nullptr, 1, a, nullptr, nullptr, nullptr, out, B, stream);
+}
+
+int bn254_fq12_fold_line(const int32_t* f, const int32_t* c, const int32_t* px,
+                         const int32_t* py, int32_t* out, int B, cudaStream_t stream) {
+  return launch_loop(nullptr, 1, f, c, px, py, out, B, stream);
 }
 
 }  // extern "C"

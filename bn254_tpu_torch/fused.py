@@ -4,9 +4,10 @@ bn254_tpu/pallas_fused.py (queue rows 5-11, 13-20).
 Every wrapper takes packed contiguous ``[c, 16, B]`` int32 tensors (the
 ``pallas_fused.pack`` layout: the tower pytree's Fq leaves stacked in
 order).  For a CUDA tensor it launches its kernel from csrc/fused.cu (rows
-5-11, 13-16, and the Fq2 square root, which serves rows 3-4) or
-csrc/groups.cu (rows 17-20); for a CPU tensor it runs its plain version
-below; any other device raises.
+5-11, 13-16, the Fq2 square root, which serves rows 3-4, and the prepared
+Miller loop, which serves rows 13 and 8) or csrc/groups.cu (rows 17-20);
+for a CPU tensor it runs its plain version below; any other device
+raises.
 
 The plain versions are the same formulas as bn254_tpu.tower and
 pallas_fused's in-kernel helpers (kfq*, kg2_*), written over stacked
@@ -489,6 +490,20 @@ def fq12_fold_line_plain(f, c, px, py):
     return out.reshape(12, N, batch)
 
 
+def miller_loop_plain(coeffs, px, py, flags):
+    """The prepared Miller loop (mod.rs:580-606): f = 1, then per step f =
+    f^2 where its flag is set and f = f * line (fq12_sqr_plain's and
+    fq12_fold_line_plain's formulas).  coeffs [n, 6, 16, B]."""
+    counts.plain_calls["miller_loop"] += 1
+    batch = px.shape[-1]
+    f = _fq12_one(px)
+    for c, flag in zip(coeffs, np.asarray(flags).ravel()):
+        if flag:
+            f = _sqr12(f)
+        f = _fold(f, c.view(3, 2, N, batch), px, py)
+    return f.reshape(12, N, batch)
+
+
 def fq12_mul_plain(a, b):
     counts.plain_calls["fq12_mul"] += 1
     batch = a.shape[-1]
@@ -959,8 +974,9 @@ def fq2_sqr(a):
 
 
 def fq12_sqr(a):
-    """Fq12 square [12, 16, B] (fq12.rs:295-303). Kernel: csrc/fused.cu
-    k_fq12_sqr, replacing pallas_fused.py _call_impl("fq12_sqr")."""
+    """Fq12 square [12, 16, B] (fq12.rs:295-303). Kernel: one step of
+    csrc/fused.cu k_miller_loop with a square and no line (six threads a
+    lane), replacing pallas_fused.py _call_impl("fq12_sqr")."""
     if not on_cuda(a):
         return fq12_sqr_plain(a)
     batch = a.shape[-1]
@@ -1002,7 +1018,8 @@ def g2_add_step(r, base):
 def fq12_fold_line(f, c, px, py):
     """f * line with ell_vv*px and ell_vw*py fused in: f [12, 16, B], c
     (ell_0, ell_vw, ell_vv) [6, 16, B], px, py [16, B] -> [12, 16, B].
-    Kernel: csrc/fused.cu k_fq12_fold_line, replacing pallas_fused.py
+    Kernel: one step of csrc/fused.cu k_miller_loop with a line and no
+    square (six threads a lane), replacing pallas_fused.py
     _call_impl("fq12_fold_line")."""
     if not on_cuda(f):
         return fq12_fold_line_plain(f, c, px, py)
@@ -1012,6 +1029,28 @@ def fq12_fold_line(f, c, px, py):
     launch("fq12_fold_line", batch, f.data_ptr(), c.data_ptr(), px.data_ptr(),
            py.data_ptr(), out.data_ptr())
     return out
+
+
+def miller_loop(coeffs, px, py, flags):
+    """The prepared Miller loop in one kernel: f = 1, then for each of the
+    n line-coefficient triples f = f^2 where its flag is set and f = f *
+    line, ell_vv scaled by px and ell_vw by py.
+
+    coeffs: [n, 6, 16, B] (ell_0, ell_vw, ell_vv a step, as
+    pairing.precompute stacks them); px, py: [16, B]; flags: n square
+    flags, the same for every lane.  Returns f [12, 16, B].  Kernel:
+    csrc/fused.cu k_miller_loop (six threads a lane over
+    loop_schedule.py's rounds), serving rows 13 and 8 as
+    pairing_jax.miller_loop's scan runs them."""
+    if not on_cuda(px):
+        return miller_loop_plain(coeffs, px, py, flags)
+    batch, n = px.shape[-1], len(flags)
+    check("miller_loop", batch, px.device, (coeffs, (n, 6)), (px, ()), (py, ()))
+    f = torch.empty((12, N, batch), dtype=torch.int32, device=px.device)
+    d_flags = _digits_on(np.asarray(flags, dtype=np.int32), px.device)
+    launch("miller_loop", batch, d_flags.data_ptr(), n, coeffs.data_ptr(), px.data_ptr(),
+           py.data_ptr(), f.data_ptr())
+    return f
 
 
 def fq12_mul(a, b):

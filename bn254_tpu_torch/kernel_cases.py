@@ -52,7 +52,7 @@ from . import probes as PB
 from . import team_schedule as TS
 from .convert import pack
 from .fields import FR
-from .pairing import _PRE_KINDS
+from .pairing import _PRE_KINDS, _SQR_FLAGS
 from .spec import constants as C
 from .spec import field as SF
 from .spec import group as SG
@@ -549,6 +549,16 @@ def _w_miller(q, p, kinds):
     return int(_lanes(p) * work), _io(_lanes(p), 4 + 2 + 12 + 6) + 4 * len(k)
 
 
+def loop_work(coeffs, px, py, flags):
+    """A square (_FQ12_SQR) where the step's flag is set and a fold
+    (_FOLD) every step: 64 x 66.5 + 23 x 36.5 = 5,095.5 products' work a
+    lane for the prepared Miller loop.  Reads the lines, px and py once,
+    writes f."""
+    fl = np.asarray(flags).ravel()
+    work = int(fl.sum()) * _FQ12_SQR + len(fl) * _FOLD
+    return _per_lane(work, px), _io(_lanes(px), 6 * len(fl) + 2 + 12) + 4 * len(fl)
+
+
 def _w_cyc_pow(a, digits):
     d = np.asarray(digits).ravel()
     fq2 = _CYC_SQR_FQ2 * len(d) + _FQ12_MUL_FQ2 * int((d != 0).sum())
@@ -703,11 +713,14 @@ CASES = (
     KernelCase("g2_add_step", "g2_add_step", _FU_CU, f"{_PF}:1151", FU.g2_add_step,
                FU.g2_add_step_plain, _fq((6, 4)),
                lambda r, base: (_per_lane(_G2_ADD_STEP, r), _io(_lanes(r), 22))),
+    # one step of k_miller_loop, six threads a lane (3: fewer lanes than a
+    # warp's five teams)
     KernelCase("fq12_fold_line", "fq12_fold_line", _FU_CU, f"{_PF}:1029",
                FU.fq12_fold_line, FU.fq12_fold_line_plain,
                lambda rng, b, d: (residues(rng, 12, b, d), residues(rng, 6, b, d),
                                   *residues(rng, 2, b, d)),
-               lambda f, c, px, py: (_per_lane(_FOLD, f), _io(_lanes(f), 32))),
+               lambda f, c, px, py: (_per_lane(_FOLD, f), _io(_lanes(f), 32)),
+               batches=(16384, 1000, 3)),
     KernelCase("fq12_mul", "fq12_mul", _FU_CU, f"{_PF}:1022", FU.fq12_mul,
                FU.fq12_mul_plain, _fq((12, 12)),
                lambda a, b: (_per_lane(_FQ12_MUL_FQ2 * FQ2_MUL_LAZY_PRODUCTS, a),
@@ -737,7 +750,8 @@ CASES = (
       for nc, skew in ((1, False), (2, False), (1, True))),
     KernelCase("fq12_sqr", "fq12_sqr", _FU_CU, f"{_PF}:1025", FU.fq12_sqr,
                FU.fq12_sqr_plain, _fq((12,)),
-               lambda a: (_per_lane(_FQ12_SQR, a), _io(_lanes(a), 24))),
+               lambda a: (_per_lane(_FQ12_SQR, a), _io(_lanes(a), 24)),
+               batches=(16384, 1000, 3)),
     KernelCase("g2_dbl_step", "g2_dbl_step", _FU_CU, f"{_PF}:1145", FU.g2_dbl_step,
                FU.g2_dbl_step_plain, _fq((6,)),
                lambda r: (_per_lane(_G2_DBL_STEP, r), _io(_lanes(r), 18))),
@@ -791,6 +805,13 @@ CASES = (
                  FU.point_mul, FU.point_mul_plain, point_mul_args(nc), point_mul_work,
                  batches=_FINAL_EXP_BATCHES, depth=point_mul_depth)
       for nc in (1, 2)),
+    # the prepared Miller loop in one launch (the JAX package's scan over
+    # rows 13 and 8); 16384 = 819 blocks of 20 lanes and 4
+    KernelCase("miller_loop", "miller_loop", _FU_CU, f"{_PF}:1025/1029", FU.miller_loop,
+               FU.miller_loop_plain,
+               lambda rng, b, d: (residues(rng, 87 * 6, b, d).view(87, 6, 16, b),
+                                  *residues(rng, 2, b, d), _SQR_FLAGS),
+               loop_work, batches=(16384, 1000, 3)),
 )
 
 

@@ -11,8 +11,9 @@ final exponentiation.
 ``precompute`` + ``miller_loop`` are the prepared-G2 entry (87 line
 coefficients computed once per G2 point, then 87 folds), the JAX
 package's unfused device route: one step kernel per coefficient (rows 7
-and 14), then an fq12_sqr (row 13) and a fold (row 8) kernel per step.
-They run no Miller kernel, so they check it independently.  The tower-op
+and 14), then the 64 squares and 87 folds (rows 13 and 8) in one
+miller_loop kernel, as the JAX package's scan runs them.  They run no
+Miller kernel (row 6), so they check it independently.  The tower-op
 steps ``_doubling_step`` / ``_addition_step`` are a third spelling, held
 against both in the tests.
 """
@@ -146,20 +147,14 @@ def precompute(q_affine):
 # ---------------------------------------------------------------------------
 
 def miller_loop(coeffs, p_affine):
-    """87 folds (mod.rs:580-606): f = [sqr] then fold line, on the
-    fq12_sqr (row 13) and fq12_fold_line (row 8) kernels, as
-    pairing_jax.py:203-214 on its fused route.
+    """87 folds (mod.rs:580-606): f = [sqr] then fold line, the scan of
+    pairing_jax.py:203-214 over rows 13 and 8, in one miller_loop kernel.
 
     coeffs: tree with leading 87 axis; p_affine: affine G1 batch (x, y).
     Returns the un-exponentiated Fq12 batch."""
     px, py = p_affine
     c = torch.stack(tree_leaves(coeffs), 1)                 # [87, 6, 16, B]
-    f = pack(T.fq12_ones(px.shape[-1], px.device))
-    for k, flag in enumerate(_SQR_FLAGS):
-        if flag:
-            f = FU.fq12_sqr(f)
-        f = FU.fq12_fold_line(f, c[k], px, py)
-    return unpack_fq12(f)
+    return unpack_fq12(FU.miller_loop(c, px, py, _SQR_FLAGS))
 
 
 def _miller_f_fused(qa, pa):

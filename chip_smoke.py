@@ -8,16 +8,17 @@ decompression, once on one NVIDIA GPU and check them.
 Phases (any failure raises, so the exit code is not 0):
 
 1. Print the card (nvidia-smi name and power limit), build every CUDA
-   kernel of counts.KERNELS (twenty-eight) from bn254_tpu_torch/csrc/ and
+   kernel of counts.KERNELS (twenty-nine) from bn254_tpu_torch/csrc/ and
    print the build's seconds and ptxas's registers, stack and shared
    memory of the MSM kernels, of the group law's five (one add, one
    double, the MSM's Horner + lane fold, the double-and-add and the GLV
-   ladder, a team of four threads a lane), of the three kernels that run
+   ladder, a team of four threads a lane), of the four kernels that run
    a team of six threads a lane (csrc/fq12_team.cuh): the cyclotomic
-   ladder (row 11), the Miller kernel (row 6) and the Fq12 product (row
-   9), and of the Fermat chain (row 5), the Fq2 square root and the final
-   exponentiation's Fq12 inverse and Frobenius maps; every other kernel
-   runs one thread a lane (every entry's numbers stay in
+   ladder (row 11), the Miller kernel (row 6), the Fq12 product (row 9)
+   and the prepared Miller loop (row 8l, whose one-step launches are rows
+   8 and 13), and of the Fermat chain (row 5), the Fq2 square root and
+   the final exponentiation's Fq12 inverse and Frobenius maps; every
+   other kernel runs one thread a lane (every entry's numbers stay in
    bn254_tpu_torch/_build/build.log).
 2. Kernel vs plain version: each kernel on CUDA tensors made from a seed
    (bn254_tpu_torch/kernel_cases.py: field residues with 0, 1 and q - 1
@@ -33,8 +34,9 @@ Phases (any failure raises, so the exit code is not 0):
    non-residue, x^3 + b2 of real G2 points) among random elements and
    squares; the lazy Fq2 product's column extremes; the probes at their
    scripts' batches, 32768 and 8192) at B = 16384 and at a ragged B =
-   1000 (n = 5000 for the MSM kernels; the Fq12 product also at B = 3,
-   fewer lanes than a warp's five teams; the Fermat chain, the Fq12
+   1000 (n = 5000 for the MSM kernels; the Fq12 product, the prepared
+   Miller loop and its one-step forms, the fold and the Fq12 square, also
+   at B = 3, fewer lanes than a warp's five teams; the Fermat chain, the Fq12
    inverse, each Frobenius map and the double-and-add also at B = 3 and
    at pairing_batch's B = 1, the Fq2 square root also at B = 3, the
    double-and-add over 64 bits at 16384
@@ -100,7 +102,11 @@ Phases (any failure raises, so the exit code is not 0):
 8. Prepared-G2 Miller loop, with the counters reset first:
    ``miller_loop(precompute(qa), pa)`` on the pairing's 16384 pairs equal
    to the fused Miller loop limb for limb, all 87 coefficient triples of 4
-   lanes equal to the spec's, and both calls timed.
+   lanes equal to the spec's, and both calls timed; the loop is one
+   miller_loop launch (no one-op fq12_sqr or fq12_fold_line).  Then the
+   miller_loop kernel against its plain version on the path's own lines
+   and the fold (row 8) on the pairing path's own Frobenius lines, both
+   at tolerance 0, and the kernel timed beside its bound.
 9. Throughput probes, with the counters reset first: ``probe_mont``
    (B = 32768, chain 64) and ``probe_tower`` (B = 8192, chain 32, the
    seven ops of bench_tower.py).  Every chain, and every op's one call
@@ -152,7 +158,7 @@ TIMED = (ROW_12, "msm_accumulate[g1,skew]", "fq12_frob[conj]", "point_add[g2]",
 PTXAS = ("k_msm_bucket_sort", "k_msm_accumulate", "k_msm_bucket_reduce", "k_fq12_cyc_pow",
          "k_miller_precompute", "k_fq12_mul", "k_fq_pow", "k_fq12_inv", "k_fq12_frob",
          "k_point_add", "k_point_double", "k_msm_combine", "k_point_mul", "k_glv_ladder",
-         "k_fq2_sqrt")
+         "k_fq2_sqrt", "k_miller_loop")
 SPREAD = ("miller_precompute",)     # also the min and max of the timed reps (row 6)
 
 
@@ -703,15 +709,19 @@ def phase_glv_timing(inputs, card, records):
                                           "bound_ms": bound, "bound_by": by})
 
 
-def phase_prepared_miller(dev, ps, qs, card):
+def phase_prepared_miller(dev, ps, qs, card, records):
     """precompute + miller_loop (the prepared-G2 entry) on the pairing's
     pairs, with the counters reset around it: equal to the fused Miller
     loop limb for limb, and all 87 coefficient triples of 4 lanes equal to
-    the spec's.  Returns its launches."""
+    the spec's; then the loop kernel and the fold (rows 8l, 8) against
+    their plain versions on the paths' own inputs.  Returns its launches."""
     from bn254_tpu_torch import convert, counts
+    from bn254_tpu_torch import fused as FU
     from bn254_tpu_torch import groups as G
+    from bn254_tpu_torch import kernel_cases as KC
     from bn254_tpu_torch import pairing as P
     from bn254_tpu_torch import tower as T
+    from bn254_tpu_torch.convert import pack
     from bn254_tpu_torch.spec import group as SG
 
     (pa, _), (qa, _) = (G.to_affine(G.G1, G.encode_points(G.G1, ps, dev)),
@@ -741,7 +751,31 @@ def phase_prepared_miller(dev, ps, qs, card):
           f"limb; 87 coefficient triples of 4 lanes = spec; precompute {times[0]:.2f} ms, "
           f"miller_loop {times[1]:.2f} ms (fused Miller loop {times[2]:.2f} ms) [{card}]",
           flush=True)
-    return check_launches("prepared-Miller", counts.PREPARED_MILLER_PATH, launches, plain)
+
+    # the kernels on the paths' own inputs: the loop on precompute's lines,
+    # the fold on the pairing's two Frobenius lines after the Miller kernel
+    c, (px, py) = torch.stack(convert.tree_leaves(coeffs), 1), pa
+    args = (c, px, py, P._SQR_FLAGS)
+    checks = [("miller_loop", FU.miller_loop(*args), FU.miller_loop_plain(*args))]
+    f, r = FU.miller_precompute(pack(qa), pack(pa), P._PRE_KINDS.reshape(-1, 1))
+    for base in P._frobenius_points(qa):
+        r, line = FU.g2_add_step(r, pack(base))
+        got = FU.fq12_fold_line(f, line, px, py)
+        checks.append(("fq12_fold_line", got, FU.fq12_fold_line_plain(f, line, px, py)))
+        f = got
+    for name, got, want in checks:
+        err = KC.max_abs_err(got, want)
+        require(err == 0, f"{name} on the prepared-Miller path differs from its plain "
+                          f"version by {err}")
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+    loop_ms = cuda_ms(lambda: FU.miller_loop(*args), 10)
+    bound, by = KC.bound_ms(*KC.loop_work(*args))
+    print(f"prepared Miller B={N_MAIN}: miller_loop kernel = plain version on precompute's "
+          f"lines, fold = plain version on the pairing's 2 Frobenius lines (max_abs_err 0); "
+          f"miller_loop kernel {loop_ms:.4f} ms (bound {bound:.4f} ms, {by}) [{card}]",
+          flush=True)
+    return check_launches("prepared-Miller", counts.PREPARED_MILLER_PATH, launches, plain,
+                          absent=("fq12_sqr", "fq12_fold_line"))
 
 
 def phase_probes(card, records):
@@ -1004,7 +1038,7 @@ def main():
     glv_launches, inputs = phase_glv(dev)
     phase_glv_timing(inputs, card, records)
     del inputs
-    miller_launches = phase_prepared_miller(dev, ps, qs, card)
+    miller_launches = phase_prepared_miller(dev, ps, qs, card, records)
     probe_launches = phase_probes(card, records)
     codec_launches = phase_codec(dev, card, records)
     print(f"all phases: {time.perf_counter() - t0:.0f} s from the build's start", flush=True)

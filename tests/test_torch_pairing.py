@@ -155,8 +155,9 @@ def test_g2_dbl_step_plain_and_tower_steps_vs_jax():
 def test_prepared_miller_reaches_its_kernels_with_valid_arguments(monkeypatch):
     """precompute + miller_loop with the wrappers taking their kernel
     branch on CPU tensors and the launch stubbed out: every check passes,
-    64 g2_dbl_step, 23 g2_add_step (21 scheduled + 2 Frobenius), 64
-    fq12_sqr and 87 fq12_fold_line launches, and no plain version runs."""
+    64 g2_dbl_step, 23 g2_add_step (21 scheduled + 2 Frobenius) and one
+    miller_loop launch (its 64 squares and 87 folds), no one-op fq12_sqr
+    or fq12_fold_line launch, and no plain version runs."""
     def launch(name, batch, *args):
         counts.launches[name] += 1
 
@@ -169,8 +170,8 @@ def test_prepared_miller_reaches_its_kernels_with_valid_arguments(monkeypatch):
     counts.reset()
     P.miller_loop(P.precompute(qa), pa)
     assert sorted(k for k, v in counts.launches.items() if v) == sorted(counts.PREPARED_MILLER_PATH)
-    assert [counts.launches[k] for k in ("g2_dbl_step", "g2_add_step", "fq12_sqr",
-                                         "fq12_fold_line")] == [64, 23, 64, 87]
+    assert [counts.launches[k] for k in ("g2_dbl_step", "g2_add_step", "miller_loop",
+                                         "fq12_sqr", "fq12_fold_line")] == [64, 23, 1, 0, 0]
     assert not any(counts.plain_calls.values())
 
 
@@ -218,6 +219,33 @@ def test_team_miller_loop_vs_jax_miller_loop(monkeypatch):
     pa_np, qa_np, want = _jax_miller_case()
     monkeypatch.setattr(FU, "miller_precompute", TT.team_miller_precompute)
     assert_same(P._miller_f_fused(*convert.from_numpy((qa_np, pa_np), "cpu")), want)
+
+
+def _team_loop(c, px, py, flags):
+    """fused.miller_loop with k_miller_loop's CPU model in place of the kernel."""
+    return TT.team_miller_loop(len(flags), flags, None, c, px, py)
+
+
+def test_team_miller_loop_route_vs_jax_miller_loop(monkeypatch):
+    """The prepared-G2 entry, precompute + miller_loop, with the team loop
+    kernel's CPU model in place of k_miller_loop equals the JAX package's
+    CPU Miller loop on the same pairs (the tape of
+    test_miller_f_fused_vs_jax_miller_loop)."""
+    pa_np, qa_np, want = _jax_miller_case()
+    pa, qa = convert.from_numpy((pa_np, qa_np), "cpu")
+    monkeypatch.setattr(FU, "miller_loop", _team_loop)
+    assert_same(P.miller_loop(P.precompute(qa), pa), want)
+
+
+def test_team_loop_model_on_precomputed_lines():
+    """The team loop's CPU model equals miller_loop_plain limb for limb on
+    the 87 lines precompute makes for 3 real affine pairs."""
+    rng = random.Random(SEED + 28)
+    pa_np, qa_np = _affine_pairs([(rng.randrange(1, R), rng.randrange(1, R)) for _ in range(3)])
+    pa, qa = convert.from_numpy((pa_np, qa_np), "cpu")
+    c = torch.stack(convert.tree_leaves(P.precompute(qa)), 1)
+    assert torch.equal(_team_loop(c, *pa, P._SQR_FLAGS),
+                       FU.miller_loop_plain(c, *pa, P._SQR_FLAGS))
 
 
 def test_miller_loop_batch_golden():

@@ -247,9 +247,9 @@ def test_cyc_pow_bound_counts_lazy_fq2_products(label):
     assert nbytes == 10 * 24 * 64
 
 
-@pytest.mark.parametrize("label", ["miller_precompute", "fq12_mul"])
+@pytest.mark.parametrize("label", ["miller_precompute", "fq12_mul", "miller_loop"])
 def test_team_kernel_bounds_count_lazy_fq2_products(label):
-    """Rows 6 and 9's bounds count the Fq2 products the functions need: a
+    """Rows 6, 9 and 8l's bounds count the Fq2 products the functions need: a
     general one at 2.5 Montgomery products' work (lazy), a square or a
     scaling by (px, 0), (py, 0) at 2.  A doubling step is 88.5: the Fq12
     square's 12 products (30), the G2 step's 4 general products, 6
@@ -268,6 +268,11 @@ def test_team_kernel_bounds_count_lazy_fq2_products(label):
     if label == "fq12_mul":
         assert (products, nbytes) == (10 * 45, 10 * 36 * 64)
         assert min(case.batches) < 5
+    elif label == "miller_loop":
+        # 64 squares (12 products) and 87 folds (13 products, 2 scalings)
+        assert KC.loop_work(*args) == (int(10 * 5095.5), 10 * (87 * 6 + 2 + 12) * 64 + 4 * 87)
+        assert 5095.5 == 64 * (12 * 2.5 + 13 * 2.5 + 2 * 2) + 23 * (13 * 2.5 + 2 * 2)
+        assert min(case.batches) < 5 and 16384 % 20 == 4
     else:
         kinds = np.asarray(args[2]).ravel()
         assert [len(r.muls) for r in TS.ROUNDS] == [17, 4, 16, 18, 2, 6, 16, 4]
@@ -399,12 +404,14 @@ def _team_half_mod(x):
     return torch.from_numpy(np.stack(out).astype(np.int32)).reshape(x.shape)
 
 
-def team_lin(state, lin, by):
+def team_lin(state, lin, by, slots=None):
     """As the kernel's team_lin: each sum its positive slots added, then
-    its negative slots subtracted; xi on b's sum; then the post step."""
+    its negative slots subtracted; xi on b's sum; then the post step.
+    `slots` names the schedule's slots (the Miller kernel's by default)."""
     from bn254_tpu_torch import team_schedule as TS
-    acc = torch.zeros_like(state[TS.SLOT["F0"]])
-    bp, bn, ap, an = ([by if i == TS.VIRT else i for i in ts] for ts in TS._split(lin, TS.NAMES))
+    acc = torch.zeros_like(state[0])
+    split = TS._split(lin, slots or TS.NAMES)
+    bp, bn, ap, an = ([by if i == TS.VIRT else i for i in ts] for ts in split)
     for pos, neg, xi in ((bp, bn, True), (ap, an, False)):
         for i in pos:
             acc = FU._add(acc, state[i])
@@ -419,19 +426,20 @@ def team_lin(state, lin, by):
     return acc
 
 
-def team_round(state, rnd, by):
+def team_round(state, rnd, by, slots=None):
     """One round on the slot list `state` (Fq2 tensors [2, 16, B]), in place;
     the products are lazy Fq2 products, as the kernel's."""
     from bn254_tpu_torch import team_schedule as TS
-    TS.check_round(rnd, TS.TEAM, TS.NAMES)
+    slots = slots or TS.NAMES
+    TS.check_round(rnd, TS.TEAM, slots)
     if rnd.muls:
-        x = torch.stack([team_lin(state, m.x, by) for m in rnd.muls])
-        y = torch.stack([team_lin(state, m.y, by) for m in rnd.muls])
+        x = torch.stack([team_lin(state, m.x, by, slots) for m in rnd.muls])
+        y = torch.stack([team_lin(state, m.y, by, slots) for m in rnd.muls])
         for m, v in zip(rnd.muls, FU._fq2_mul_lazy(x, y)):
-            state[TS.SLOT[m.dst]] = v
-    new = [(c.dst, team_lin(state, c.lin, by)) for c in rnd.lins]
+            state[slots[m.dst]] = v
+    new = [(c.dst, team_lin(state, c.lin, by, slots)) for c in rnd.lins]
     for dst, v in new:
-        state[TS.SLOT[dst]] = v
+        state[slots[dst]] = v
 
 
 def team_state(f=None, q=None, p=None, r=None):
@@ -547,3 +555,90 @@ def test_team_fold_equals_plain_version():
     team_round(st, TS.Round(TS.FOLD_MULS, TS.FOLD_LINS), 0)
     assert torch.equal(team_slots(st, "F0", "F1", "F2", "F3", "F4", "F5"),
                        FU.fq12_fold_line_plain(d["f"], d["c"], *d["p"]))
+
+
+# The prepared Miller loop's schedule (bn254_tpu_torch/loop_schedule.py,
+# csrc/fused.cu k_miller_loop): the Miller kernel's square and fold rounds
+# over a slot map of their own, two sets of line slots in turn.
+
+def team_miller_loop(n, flags, f, c, px, py):
+    """k_miller_loop on the CPU, its arguments in its order: f (or 1 for
+    None) and, with lines c [n, 6, 16, B], (px, 0), (py, 0) and line 0 raw
+    into the slots, then line 0's scalings; per step line i + 1 into the
+    other set, then the rounds loop_schedule.step_rounds picks (the square
+    where flags[i] is set, or every step without lines).  Returns f
+    [12, 16, B]."""
+    from bn254_tpu_torch import loop_schedule as LS
+    base = px if c is not None else f[0]
+    one = FU._fq12_one(base)[0, 0]
+    zero = torch.zeros_like(one)
+    st = [zero] * LS.N_SLOTS
+    st[:6] = list(f.view(6, 2, 16, -1)) if f is not None else [one] + [zero] * 5
+    run = lambda r: team_round(st, LS.ROUNDS[r], 0, LS.SLOT)
+
+    def put(j, s):          # thread k's Fq of line j into half k & 1 of its slot
+        for k in range(6):
+            i = LS.SLOT[s + "0"] + LS.LINE_SLOT[k]
+            v = st[i].clone()
+            v[k & 1] = c[j, k]
+            st[i] = v
+    if c is not None:
+        st[LS.SLOT["PX"]], st[LS.SLOT["PY"]] = (torch.stack([x, zero[0]]) for x in (px, py))
+        put(0, LS.SETS[0])
+        run(LS.R_SCALE)
+    for i in range(n):
+        if c is None:
+            run(LS.R_SQR)
+            continue
+        if i + 1 < n:
+            put(i + 1, LS.SETS[(i + 1) % 2])
+        for r in LS.step_rounds(n, i, flags is not None and bool(flags[i])):
+            run(r)
+    return torch.stack(st[:6]).reshape(12, 16, -1)
+
+
+@pytest.mark.parametrize("index", range(6))
+def test_loop_schedule_round_is_race_free(index):
+    """Every round of the loop's table passes check_round over the loop's
+    slots, fits a round's passes (the fold with the next step's scalings
+    in its spare tasks: 15 products, three passes), names only the lane's
+    27 slots, and the header holds it."""
+    from bn254_tpu_torch import loop_schedule as LS
+    from bn254_tpu_torch import team_schedule as TS
+    assert len(LS.ROUNDS) == 6 and LS.N_SLOTS == 27
+    rnd = LS.ROUNDS[index]
+    TS.check_round(rnd, TS.TEAM, LS.SLOT)
+    assert [len(r.muls) for r in LS.ROUNDS] == [12, 2, 13, 13, 15, 15]
+    used = set().union(*(TS.reads(m.x) | TS.reads(m.y) | {m.dst} for m in rnd.muls),
+                       *(TS.reads(c.lin) | {c.dst} for c in rnd.lins))
+    assert used <= set(LS.SLOT)
+    assert LS.header().count("#define BN254_LOOP_ROUNDS") == 1
+    passes = sum(-(-len(LS.ROUNDS[r].muls) // TS.TEAM) for i in range(87)
+                 for r in LS.step_rounds(87, i, i < 64))
+    assert passes + 1 == 87 * 3 + 64 * 2 + 1     # + line 0's scalings
+
+
+def test_team_loop_model_equals_plain_version():
+    """The whole team loop (87 lines, 64 squares) equals miller_loop_plain
+    limb for limb on the kernel case's inputs at batch 8: residue lines
+    and px, py with 0, 1 and q - 1 in the first lanes, lane 0 all zeros."""
+    from bn254_tpu_torch import kernel_cases as KC
+    case = next(c for c in KC.CASES if c.label == "miller_loop")
+    c, px, py, flags = case.make_args(np.random.default_rng(SEED + 13), 8, "cpu")
+    assert torch.equal(team_miller_loop(len(flags), flags, None, c, px, py),
+                       FU.miller_loop_plain(c, px, py, flags))
+
+
+@pytest.mark.parametrize("label", ["fq12_sqr", "fq12_fold_line"])
+def test_team_loop_one_step_forms_equal_plain_versions(label):
+    """Rows 13 and 8 as the one-step launches of k_miller_loop (a square
+    and no line; a line and no flags) equal their plain versions."""
+    from bn254_tpu_torch import kernel_cases as KC
+    case = next(c for c in KC.CASES if c.label == label)
+    args = case.make_args(np.random.default_rng(SEED + 14), 8, "cpu")
+    if label == "fq12_sqr":
+        got = team_miller_loop(1, None, args[0], None, None, None)
+    else:
+        f, c, px, py = args
+        got = team_miller_loop(1, None, f, c.unsqueeze(0), px, py)
+    assert torch.equal(got, case.plain(*args))
