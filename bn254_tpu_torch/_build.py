@@ -10,10 +10,12 @@ Field constants reach the kernels through ``_build/bn254_consts.h``,
 generated here from ``bn254_tpu_torch.spec.constants`` (the port's copy of
 the oracle) through the port's ``Mod``: the Fq modulus, -q^-1 mod 2^32,
 q^2 (16 words: the lazy Fq2 product's offset) and the Montgomery forms
-of 1, 1/2 and the twist coefficient b2, the Frobenius factors of Fq12
-(``frob12_consts``), and the team schedules of the Miller kernel
-(``team_schedule.header``), the prepared Miller loop
-(``loop_schedule.header``) and the GLV ladder (``ladder_schedule.header``).
+of 1 and the twist coefficient b2, the Frobenius factors of Fq12
+(``frob12_consts``) and of the twist (``twist_consts``), and the team
+schedules of the Miller kernel (``team_schedule.header``), the prepared
+Miller loop (``loop_schedule.header``), the G2 line steps
+(``precompute_schedule.header``) and the GLV ladder
+(``ladder_schedule.header``).
 (The Montgomery kernels take their modulus as an argument instead, so they
 serve Fr as well.)
 
@@ -32,7 +34,7 @@ from pathlib import Path
 
 import torch
 
-from . import counts, ladder_schedule, loop_schedule, team_schedule
+from . import counts, ladder_schedule, loop_schedule, precompute_schedule, team_schedule
 from .limbs import Mod
 from .spec import constants as C
 from .spec import field as SF
@@ -76,6 +78,7 @@ _SIGS = {
     "point_mul": "ippip",        # ncoords, p, scalar limbs, num_bits, out
     "fq2_sqrt": "pipippp",       # digits of (q-3)/4, n, of (q-1)/2, n, a, root, ok
     "miller_loop": "pipppp",     # square flags, n, coeffs [n, 6, 16, B], px, py, f
+    "g2_precompute": "pipp",     # kinds, n, q, lines [n, 6, 16, B]
 }
 assert tuple(_SIGS) == counts.KERNELS
 
@@ -96,6 +99,15 @@ def frob12_consts(power: int) -> list:
     return c6 + [SF.fq2_mul(c, C.FROB12_C1[power]) for c in c6]
 
 
+def twist_consts() -> list:
+    """The Fq2 factors (canonical int pairs) that give the Frobenius G2
+    bases from an affine Q (pairing._mul_by_q: x' = tx conj(x), y' = ty
+    conj(y)): tx, ty, then tx conj(tx) and ty conj(ty), which take Q to
+    pi^2(Q) in one product, (x, y) -> (tx conj(tx) x, ty conj(ty) y)."""
+    tx, ty = C.TWIST_MUL_BY_Q_X, C.TWIST_MUL_BY_Q_Y
+    return [tx, ty] + [SF.fq2_mul(t, SF.fq2_frob(t, 1)) for t in (tx, ty)]
+
+
 def consts_header() -> str:
     """The generated constants header (Montgomery forms, 32-bit words)."""
     fq = Mod(C.Q)
@@ -109,12 +121,13 @@ def consts_header() -> str:
         f"#define BN254_FQ_QINV 0x{fq.qinv32:08x}u",
         f"#define BN254_FQ_Q_SQUARED {_words(C.Q ** 2, 16)}",
         f"#define BN254_FQ_ONE {_words(mont(1))}",
-        f"#define BN254_FQ_TWO_INV {_words(mont(pow(2, C.Q - 2, C.Q)))}",
         f"#define BN254_B2_C0 {_words(mont(C.B2[0]))}",
         f"#define BN254_B2_C1 {_words(mont(C.B2[1]))}",
         f"#define BN254_FROB12 {frob}",
+        f"#define BN254_TWIST {', '.join(_words(mont(x)) for c in twist_consts() for x in c)}",
         team_schedule.header(),
         loop_schedule.header(),
+        precompute_schedule.header(),
         ladder_schedule.header(),
     ])
 

@@ -21,6 +21,7 @@ KERNELS = (
     "msm_combine", "point_mul",
     "fq2_sqrt",
     "miller_loop",
+    "g2_precompute",
 )
 
 # The kernels each main path launches (chip_smoke.py asserts every one).
@@ -30,9 +31,8 @@ MSM_PATH = ("mont_mul", "mont_sqr", "fq2_mul", "fq2_sqr", "fq_pow",   # to_affin
             "msm_bucket_sort", "msm_accumulate", "msm_bucket_reduce")   # row 19
 GLV_PATH = ("mont_mul",                  # endo: beta x
             "point_add", "glv_ladder")   # p1 + p2, the ladder
-PREPARED_MILLER_PATH = ("fq2_mul",       # the Frobenius bases
-                        "g2_dbl_step", "g2_add_step",   # precompute
-                        "miller_loop")                  # the 87 folds and 64 squares
+PREPARED_MILLER_PATH = ("g2_precompute",   # the 87 lines, the Frobenius bases among them
+                        "miller_loop")     # the 87 folds and 64 squares
 PROBE_PATH = ("chain_mont", "chain_tower",
               # each op once as its own kernel, beside its in-chain rate
               "mont_mul", "mont_sqr", "fq2_mul_fused", "fq2_sqr_fused",

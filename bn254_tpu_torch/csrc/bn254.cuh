@@ -1,9 +1,10 @@
-// Device layer of the port's kernels: the BN254 base field in registers,
-// the Fq2/Fq6/Fq12 tower and the G2 line steps over it.
+// Device layer of the port's kernels: the BN254 base field in registers
+// and the Fq2/Fq6/Fq12 tower over it.
 //
 // Counterpart of bn254_tpu/pallas_fused.py's in-kernel helpers (KCtx,
-// kfq2_*, kfq6_*, kfq12_*, kg2_*), with the same formulas in the same
-// order as bn254_tpu/tower.py and pairing_jax.py.
+// kfq2_*, kfq6_*, kfq12_*), with the same formulas in the same order as
+// bn254_tpu/tower.py.  (Its G2 line steps, kg2_*, run as team rounds:
+// fused.cu k_g2_precompute.)
 //
 // Representation.  In memory an Fq value is 16 little-endian 16-bit limbs
 // of its Montgomery residue (R = 2^256), one int32 per limb, at address
@@ -41,8 +42,6 @@ struct Fq { uint32_t v[8]; };
 struct Fq2 { Fq c0, c1; };
 struct Fq6 { Fq2 c0, c1, c2; };
 struct Fq12 { Fq6 c0, c1; };
-struct G2J { Fq2 x, y, z; };                  // Jacobian point on the twist
-struct Line { Fq2 ell_0, ell_vw, ell_vv; };   // stored in this order
 struct Modulus { uint32_t q[8]; uint32_t qinv; };  // qinv = -q^-1 mod 2^32
 
 __device__ __forceinline__ Modulus fq_modulus() {
@@ -93,16 +92,6 @@ __device__ __forceinline__ void store(int32_t* base, int B, int lane, const Fq12
   store(base, 0, B, lane, a.c0.c0); store(base, 2, B, lane, a.c0.c1);
   store(base, 4, B, lane, a.c0.c2); store(base, 6, B, lane, a.c1.c0);
   store(base, 8, B, lane, a.c1.c1); store(base, 10, B, lane, a.c1.c2);
-}
-
-// three Fq2 at coordinates 0..5: a G2 point (x, y, z) or a Line
-__device__ __forceinline__ void load3(Fq2& a, Fq2& b, Fq2& c, const int32_t* base, int B, int lane) {
-  load(a, base, 0, B, lane); load(b, base, 2, B, lane); load(c, base, 4, B, lane);
-}
-
-__device__ __forceinline__ void store3(int32_t* base, int B, int lane, const Fq2& a,
-                                       const Fq2& b, const Fq2& c) {
-  store(base, 0, B, lane, a); store(base, 2, B, lane, b); store(base, 4, B, lane, c);
 }
 
 // An Fq as 8 packed 32-bit words at a 16-byte aligned address: the MSM's
@@ -715,81 +704,6 @@ static __device__ __noinline__ void fq12_cyclotomic_sqr(Fq12& r, const Fq12& a) 
   cyc_tri(nz5, z5, t3, false);
   r.c0.c0 = nz0; r.c0.c1 = nz4; r.c0.c2 = nz3;
   r.c1.c0 = nz2; r.c1.c1 = nz1; r.c1.c2 = nz5;
-}
-
-// ---------------------------------------------------------------------------
-// G2 line steps (pairing_jax._doubling_step / _addition_step)
-// ---------------------------------------------------------------------------
-
-// Miller doubling step (mod.rs:754-776)
-static __device__ __noinline__ void g2_dbl_step(G2J& r, Line& l) {
-  const Fq two_inv = Fq{{BN254_FQ_TWO_INV}};
-  const Fq2 b2 = Fq2{Fq{{BN254_B2_C0}}, Fq{{BN254_B2_C1}}};
-  Fq2 a, b, c, d, e, f, g, h, i, j, e_sq, t, nx, ny, nz;
-  fq2_mul(t, r.x, r.y);
-  fq2_scale(a, t, two_inv);
-  fq2_sqr(b, r.y);
-  fq2_sqr(c, r.z);
-  fq2_add(d, c, c);
-  fq2_add(d, d, c);
-  fq2_mul(e, b2, d);
-  fq2_add(f, e, e);
-  fq2_add(f, f, e);
-  fq2_add(t, b, f);
-  fq2_scale(g, t, two_inv);
-  fq2_add(t, r.y, r.z);
-  fq2_sqr(h, t);
-  fq2_add(t, b, c);
-  fq2_sub(h, h, t);
-  fq2_sub(i, e, b);
-  fq2_sqr(j, r.x);
-  fq2_sqr(e_sq, e);
-
-  fq2_sub(t, b, f);
-  fq2_mul(nx, a, t);
-  fq2_sqr(ny, g);
-  fq2_add(t, e_sq, e_sq);
-  fq2_add(t, t, e_sq);
-  fq2_sub(ny, ny, t);
-  fq2_mul(nz, b, h);
-
-  fq2_mul_by_xi(l.ell_0, i);
-  fq2_neg(l.ell_vw, h);
-  fq2_add(t, j, j);
-  fq2_add(l.ell_vv, t, j);
-  r.x = nx; r.y = ny; r.z = nz;
-}
-
-// mixed addition step against an affine base (mod.rs:731-752)
-static __device__ __noinline__ void g2_add_step(G2J& r, Line& l, const Fq2& bx, const Fq2& by) {
-  Fq2 d, e, f, g, h, i, j, t, u, nx, ny, nz;
-  fq2_mul(t, r.z, bx);
-  fq2_sub(d, r.x, t);
-  fq2_mul(t, r.z, by);
-  fq2_sub(e, r.y, t);
-  fq2_sqr(f, d);
-  fq2_sqr(g, e);
-  fq2_mul(h, d, f);
-  fq2_mul(i, r.x, f);
-  fq2_mul(t, r.z, g);
-  fq2_add(t, t, h);
-  fq2_add(u, i, i);
-  fq2_sub(j, t, u);
-
-  fq2_mul(nx, d, j);
-  fq2_sub(t, i, j);
-  fq2_mul(ny, e, t);
-  fq2_mul(t, h, r.y);
-  fq2_sub(ny, ny, t);
-  fq2_mul(nz, r.z, h);
-
-  fq2_mul(t, e, bx);
-  fq2_mul(u, d, by);
-  fq2_sub(t, t, u);
-  fq2_mul_by_xi(l.ell_0, t);
-  l.ell_vw = d;
-  fq2_neg(l.ell_vv, e);
-  r.x = nx; r.y = ny; r.z = nz;
 }
 
 }  // namespace bn254

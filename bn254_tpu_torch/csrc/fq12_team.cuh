@@ -17,9 +17,9 @@
 // xi applied part way, read from a per-thread table of slot numbers and
 // signs, so a warp does not run six different formulas one after the
 // other.  Every value is fully reduced after each op, so the outputs are
-// the single-thread formulas' (fq12_mul, fq12_cyclotomic_sqr, fq12_sqr,
-// g2_dbl_step, g2_add_step) and the plain 024 fold's bit for bit: the
-// same field values, added in another grouping.
+// the single-thread formulas' (fq12_mul, fq12_cyclotomic_sqr, fq12_sqr),
+// the plain G2 line steps' (fused._dbl_step, _add_step) and the plain 024
+// fold's bit for bit: the same field values, added in another grouping.
 //
 // The team steps here and their users:
 //   team_fq12_mul_products / _coeff   Fq12 product: row 9 (k_fq12_mul),
@@ -39,7 +39,12 @@
 //                                     slot map of their own, the
 //                                     prepared Miller loop and rows 13
 //                                     and 8 (fused.cu k_miller_loop;
-//                                     loop_schedule.py)
+//                                     loop_schedule.py); with a team of
+//                                     four, the G2 doubling and addition
+//                                     products alone, the prepared-G2
+//                                     lines and rows 14 and 7 (fused.cu
+//                                     k_g2_precompute;
+//                                     precompute_schedule.py)
 #pragma once
 
 #include "bn254.cuh"
@@ -397,10 +402,11 @@ __device__ __forceinline__ Fq2 team_cyc_sqr_coeff(int j, const uint32_t* P, cons
 }
 
 // ---------------------------------------------------------------------------
-// Table-driven rounds (the Miller kernel, row 6, and the prepared Miller
-// loop, row 8l, over Fq2 slots; the GLV ladder, row 20, csrc/groups.cu,
-// over Fq or Fq2 slots).  The schedule (bn254_tpu_torch/team_schedule.py,
-// loop_schedule.py, ladder_schedule.py, emitted into
+// Table-driven rounds (the Miller kernel, row 6, the prepared Miller
+// loop, row 8l, and the prepared-G2 lines, row 14l, over Fq2 slots; the
+// GLV ladder, row 20, csrc/groups.cu, over Fq or Fq2 slots).  The schedule
+// (bn254_tpu_torch/team_schedule.py, loop_schedule.py,
+// precompute_schedule.py, ladder_schedule.py, emitted into
 // bn254_consts.h) lists a step's rounds; in a round thread k of a team of
 // T computes the products k, k + T, ... and, after a __syncwarp, the
 // linear combinations k, k + T, ....  An operand or combination is xi(sum
@@ -408,7 +414,8 @@ __device__ __forceinline__ Fq2 team_cyc_sqr_coeff(int j, const uint32_t* P, cons
 // added, then its negative slots subtracted, halved or doubled after
 // (post 1, 2); a slot at BN254_TEAM_VIRT + j or above stands for slot vb +
 // j of the lane (the Miller kernel: its addition's base y, Q's or -Q's;
-// the ladder: the table point its digit picks).  Every thread runs this
+// the prepared-G2 lines: the base's x and y; the ladder: the table point
+// its digit picks).  Every thread runs this
 // one code; only the table differs.
 // ---------------------------------------------------------------------------
 

@@ -3,13 +3,15 @@
 // final exponentiation's Fq12 inverse and Frobenius maps (k_fq12_inv,
 // k_fq12_frob), which replace tower glue around row 3 on the TPU's path,
 // the Fq2 square root (k_fq2_sqrt), which replaces the JAX package's
-// scans over rows 3-4, and the prepared Miller loop (k_miller_loop), which
-// replaces its scan over rows 13 and 8.
+// scans over rows 3-4, the prepared Miller loop (k_miller_loop), which
+// replaces its scan over rows 13 and 8, and the 87 G2 lines of the
+// prepared-G2 entry (k_g2_precompute), which replace its scan over rows 14
+// and 7.
 //
-// Two designs.  One thread a lane (rows 5, 7, 10, 14-16: k_fq_pow,
-// k_g2_add_step, k_fq12_cyc_sqr, k_g2_dbl_step, k_fq2_mul_fused,
-// k_fq2_sqr_fused; and k_fq12_inv and the codec's Fq2 square root
-// k_fq2_sqrt; k_fq12_frob runs one thread a coefficient): 128-thread
+// Two designs.  One thread a lane (rows 5, 10, 15-16: k_fq_pow,
+// k_fq12_cyc_sqr, k_fq2_mul_fused, k_fq2_sqr_fused; and k_fq12_inv and
+// the codec's Fq2 square root k_fq2_sqrt; k_fq12_frob runs one thread a
+// coefficient): 128-thread
 // blocks, the ragged edge masked; a kernel reads its operands once, runs
 // the whole formula with every intermediate on the thread's registers and
 // stack, and writes its result once, as the TPU kernels keep theirs in
@@ -22,20 +24,24 @@
 // kernels 138-236 registers and 1-3 KB stack frames (k_fq12_inv 214 and
 // 1,952 B), k_fq12_frob 86 and none.
 //
-// A team of six threads of one warp a lane (rows 6, 8, 9, 11, 13:
-// k_miller_precompute, k_miller_loop and its one-step launches for rows 8
-// and 13, k_fq12_mul, k_fq12_cyc_pow; fq12_team.cuh), five lanes to a
-// warp, threads 30 and 31 idle: the lane's Fq12 and its product scratch
-// sit in shared memory as Fq2 slots, each thread computes a sixth of an
-// op's Fq2 products, and after a __syncwarp one output coefficient, so no
-// thread holds more than two Fq2 operands and a product, and no stack is
-// used.  At B = 16384 that is 98,304 threads where one a lane gives 16,384
-// (fewer warps than the card's 528 schedulers).  ptxas (sm_90a) and shared
-// memory:
+// A team of threads of one warp a lane (fq12_team.cuh): six in rows 6, 8,
+// 9, 11, 13 (k_miller_precompute, k_miller_loop and its one-step launches
+// for rows 8 and 13, k_fq12_mul, k_fq12_cyc_pow), five lanes to a warp,
+// threads 30 and 31 idle; four in rows 14 and 7 (k_g2_precompute and its
+// one-step launches), eight lanes to a warp.  The lane's Fq12 or G2 state
+// and its product scratch sit in shared memory as Fq2 slots, each thread
+// computes its share of an op's Fq2 products, and after a __syncwarp its
+// share of the output coefficients, so no thread holds more than two Fq2
+// operands and a product, and no stack is used.  At B = 16384 a team of
+// six is 98,304 threads where one a lane gives 16,384 (fewer warps than
+// the card's 528 schedulers).  ptxas (sm_90a) and shared memory:
 //   k_miller_precompute  104 registers, no stack; 41 slots = 3,280 B a
 //                        lane, 32,800 B a block of 2 warps (static)
 //   k_miller_loop        27 slots = 2,160 B a lane, 43,200 B a block of
 //                        4 warps (static)
+//   k_g2_precompute      110 registers, no stack; a team of four: 25
+//                        slots = 2,000 B a lane, 16,000 B a block of
+//                        1 warp (static)
 //   k_fq12_mul           180 registers, no stack; 2,400 B a lane, 48,000
 //                        B a block of 4 warps (static)
 //   k_fq12_cyc_pow       232 registers, no stack; the same 48,000 B
@@ -177,7 +183,8 @@ __global__ void k_fq12_frob(int power, const int32_t* __restrict__ a,
 
 // Team geometry (fq12_team.cuh): thread k of team t of warp v holds
 // coefficient k of lane 5 v + t of the block; threads 30 and 31 of each
-// warp, and teams past B, only keep the warp's barriers.
+// warp, and teams past B, only keep the warp's barriers.  (A team of T
+// threads: 32 / T teams a warp.)
 constexpr int kTeam = 6, kTeamsPerWarp = 5;
 
 struct TeamThread {
@@ -185,13 +192,15 @@ struct TeamThread {
   bool active;
 };
 
+template <int T = kTeam>
 __device__ __forceinline__ TeamThread team_thread(int lanes_per_block, int B) {
-  const int warp = threadIdx.x / 32, team = (threadIdx.x % 32) / kTeam;
+  constexpr int per_warp = 32 / T;
+  const int warp = threadIdx.x / 32, team = (threadIdx.x % 32) / T;
   TeamThread t;
-  t.k = threadIdx.x % 32 - team * kTeam;
-  t.slot = warp * kTeamsPerWarp + team;
+  t.k = threadIdx.x % 32 - team * T;
+  t.slot = warp * per_warp + team;
   t.lane = blockIdx.x * lanes_per_block + t.slot;
-  t.active = team < kTeamsPerWarp && t.lane < B;
+  t.active = team < per_warp && t.lane < B;
   return t;
 }
 
@@ -257,35 +266,143 @@ __global__ void k_miller_precompute(const int32_t* __restrict__ kinds, int n,
   }
 }
 
-// pallas_fused.py _call_impl("g2_add_step")
-__global__ void k_g2_add_step(const int32_t* __restrict__ r_in,
-                              const int32_t* __restrict__ base,
-                              int32_t* __restrict__ r_out,
-                              int32_t* __restrict__ c_out, int B) {
-  int lane = lane_index();
-  if (lane >= B) return;
-  G2J r;
-  load3(r.x, r.y, r.z, r_in, B, lane);
-  Fq2 bx, by;
-  load(bx, base, 0, B, lane);
-  load(by, base, 2, B, lane);
-  Line l;
-  g2_add_step(r, l, bx, by);
-  store3(r_out, B, lane, r.x, r.y, r.z);
-  store3(c_out, B, lane, l.ell_0, l.ell_vw, l.ell_vv);
+// pairing.precompute (mod.rs:701-728), which the JAX package runs as a
+// lax.scan over rows 14 (pallas_fused.py _call_impl("g2_dbl_step")) and 7
+// (_call_impl("g2_add_step")), then _mul_by_q twice and the 2 Frobenius
+// additions (bn254_tpu/pairing_jax.py:130-177): R = (qx, qy, 1), then per
+// step a doubling (kind 0) or a mixed addition of base `kind` (1: Q, 2:
+// -Q, 3: pi(Q), 4: -pi^2(Q)), each step's raw line (ell_0, ell_vw,
+// ell_vv) written to lines [n, 6, 16, B], the layout k_miller_loop reads.
+// One launch runs all 87 steps: R stays in shared memory from the first
+// step to the last, and the team stores each line's 6 Fq straight to
+// device memory, fenced by a __syncwarp of its own before the next step's
+// rounds write the line slots.  A team of four threads a lane (eight
+// lanes a warp, no thread idle) over precompute_schedule.py's rounds (the
+// Miller kernel's doubling and addition products without f, the fold and
+// the px, py scalings, regrouped into rounds of at most four: 3 product
+// passes a doubling step, 4 with the next addition's first products, 3
+// an addition after it); 25 Fq2 slots (2,000 bytes) a lane in static
+// shared memory, 16,000 bytes a one-warp block, 14 blocks an SM.  A team
+// of six over the Miller kernel's grouping (262 passes, 30 slots) ran
+// 3.55-3.65 ms at 16384 lanes, one thread a lane looping over the
+// one-thread step formulas 3.36-3.47, this one 2.81 (PERF.md): a pass
+// costs a warp the same however few of its threads have a product, and
+// these steps have at most five products a level.  The addition's base
+// is read through vb, kind k's at slot Q1X + 2 (k - 1).  The bases are
+// made at the start, one product a part: pi(Q) = (tx conj(qx), ty
+// conj(qy)) and pi^2(Q) = (tx conj(tx) qx, ty conj(ty) qy), the twist
+// factors and their norms from the generated header
+// (_build.twist_consts), the same field values as _mul_by_q applied
+// twice.  Bound by operations: 64 doubling steps of 22 products' work and
+// 23 additions of 31.5, and the 4 products of the bases, 2,142.5 a lane
+// (kernel_cases.lines_work); the lines are 87 x 6 Fq a lane.
+//
+// Rows 14 and 7 are one-step launches of this kernel: R from r_in and no
+// q (a doubling step), and R from r_in with base (an addition of base).
+// kinds == nullptr: every step is an addition of base if base is given,
+// else a doubling step; r_out == nullptr: R is not written.
+constexpr int kLinesTeam = BN254_PRE_TEAM, kLinesWarps = 1;   // 2 warps timed 4-5 % slower
+constexpr int kLinesLanes = 32 / kLinesTeam * kLinesWarps;
+constexpr int kLinesLaneWords = BN254_PRE_SLOTS * kTeamSlot;
+static __constant__ TeamRound kPreRounds[BN254_PRE_NROUNDS] = BN254_PRE_ROUNDS;
+// tx, ty, tx conj(tx), ty conj(ty): Fq2 j at 16 j, c0's words, then c1's
+static __constant__ uint32_t kTwist[4 * 16] = {BN254_TWIST};
+
+__device__ __forceinline__ Fq2 twist_const(int j) {
+  Fq2 w;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    w.c0.v[i] = kTwist[16 * j + i];
+    w.c1.v[i] = kTwist[16 * j + 8 + i];
+  }
+  return w;
 }
 
-// pallas_fused.py _call_impl("g2_dbl_step")
-__global__ void k_g2_dbl_step(const int32_t* __restrict__ r_in, int32_t* __restrict__ r_out,
-                              int32_t* __restrict__ c_out, int B) {
-  int lane = lane_index();
-  if (lane >= B) return;
-  G2J r;
-  load3(r.x, r.y, r.z, r_in, B, lane);
-  Line l;
-  g2_dbl_step(r, l);
-  store3(r_out, B, lane, r.x, r.y, r.z);
-  store3(c_out, B, lane, l.ell_0, l.ell_vw, l.ell_vv);
+// Part j (0-5) of a lane's start: R = r_in or (qx, qy, 1) (j < 3); the
+// bases from q (j 0: Q's and -Q's x, pi(Q)'s x; 1: Q's y, pi(Q)'s y; 2:
+// -Q's y; 3: pi^2(Q)'s x; 4: its y, negated), or base as kind 1's; b2 (j 5)
+__device__ __forceinline__ void lines_start(uint32_t* s, int j, const int32_t* q,
+                                            const int32_t* r_in, const int32_t* base, int B,
+                                            int lane) {
+  const int q1 = BN254_PRE_SLOT_Q1X;
+  const Fq zero = fq_const_zero(), one = fq_const_one();
+  Fq2 v;
+  if (j < 3) {
+    if (r_in) {
+      load(v, r_in, 2 * j, B, lane);
+    } else if (j < 2) {
+      load(v, q, 2 * j, B, lane);
+    } else {
+      v = Fq2{one, zero};
+    }
+    st2_s(s, BN254_PRE_SLOT_RX + j, v);
+  }
+  if (q && j < 5) {
+    load(v, q, j == 0 || j == 3 ? 0 : 2, B, lane);
+    if (j < 2) {
+      st2_s(s, q1 + j, v);
+      if (j == 0) st2_s(s, q1 + 2, v);
+      fq_neg(v.c1, v.c1);
+      st2_s(s, q1 + 4 + j, team_fq2_mul(v, twist_const(j)));
+    } else if (j == 2) {
+      fq2_neg(v, v);
+      st2_s(s, q1 + 3, v);
+    } else {
+      v = team_fq2_mul(v, twist_const(j - 1));
+      if (j == 4) fq2_neg(v, v);
+      st2_s(s, q1 + 3 + j, v);
+    }
+  }
+  if (base && j < 2) {
+    load(v, base, 2 * j, B, lane);
+    st2_s(s, q1 + j, v);
+  }
+  if (j == 5) st2_s(s, BN254_PRE_SLOT_B2, Fq2{Fq{{BN254_B2_C0}}, Fq{{BN254_B2_C1}}});
+}
+
+__global__ void k_g2_precompute(const int32_t* __restrict__ kinds, int n,
+                                const int32_t* __restrict__ q, const int32_t* __restrict__ r_in,
+                                const int32_t* __restrict__ base, int32_t* __restrict__ lines,
+                                int32_t* __restrict__ r_out, int B) {
+  __shared__ __align__(16) uint32_t s_lanes[kLinesLanes * kLinesLaneWords];
+  const TeamThread t = team_thread<kLinesTeam>(kLinesLanes, B);
+  const int k = t.k;
+  uint32_t* s = s_lanes + (t.active ? t.slot : 0) * kLinesLaneWords;
+  if (t.active)
+    for (int j = k; j < 6; j += kLinesTeam) lines_start(s, j, q, r_in, base, B, t.lane);
+  __syncwarp();
+  // team_schedule.step_rounds: a doubling step runs rounds 0, 1, 2, or 0,
+  // 1, 3 when an addition follows (3 also takes the addition's first
+  // products, against the next step's base); an addition runs 4-7, or 5-7
+  // after a doubling step
+  for (int i = 0; i < n; ++i) {
+    const int kind = kinds ? kinds[i] : (base ? 1 : 0);
+    const int next = kinds && i + 1 < n ? kinds[i + 1] : 0;
+    const int prev = kinds && i > 0 ? kinds[i - 1] : 1;
+    const int add = kind == 0 ? next : kind;
+    const int vb = BN254_PRE_SLOT_Q1X + 2 * (add ? add - 1 : 0);
+    const int r0 = kind == 0 ? 0 : (prev == 0 ? 5 : 4), r_end = kind == 0 ? 3 : 8;
+#pragma unroll 1
+    for (int r = r0; r < r_end; ++r)
+      team_round<Fq2, kLinesTeam>(kPreRounds[r == 2 && next != 0 ? 3 : r], k, s, vb,
+                                  t.active);
+    if (t.active)      // Fq j of the line: half j & 1 of slot E0 + j / 2
+      for (int j = k; j < 6; j += kLinesTeam)
+        store(lines + (size_t)i * 6 * 16 * B, j, B, t.lane,
+              fq_load_words(s + kTeamSlot * (BN254_PRE_SLOT_E0 + j / 2) + 8 * (j & 1)));
+    __syncwarp();
+  }
+  if (r_out && t.active)
+    for (int j = k; j < 3; j += kLinesTeam)
+      store(r_out, 2 * j, B, t.lane, ld2_s(s, BN254_PRE_SLOT_RX + j));
+}
+
+int launch_lines(const int32_t* kinds, int n, const int32_t* q, const int32_t* r_in,
+                 const int32_t* base, int32_t* lines, int32_t* r_out, int B,
+                 cudaStream_t stream) {
+  k_g2_precompute<<<(B + kLinesLanes - 1) / kLinesLanes, 32 * kLinesWarps, 0, stream>>>(
+      kinds, n, q, r_in, base, lines, r_out, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // pallas_fused.py _call_impl("fq2_mul"): kfq2_mul in its default lazy
@@ -517,14 +634,21 @@ int bn254_miller_precompute(const int32_t* kinds, int n, const int32_t* p, const
   return static_cast<int>(cudaGetLastError());
 }
 
+// the 87 lines of pairing.precompute in one launch; rows 7 and 14 as one
+// step of the same kernel
+int bn254_g2_precompute(const int32_t* kinds, int n, const int32_t* q, int32_t* lines, int B,
+                        cudaStream_t stream) {
+  return launch_lines(kinds, n, q, nullptr, nullptr, lines, nullptr, B, stream);
+}
+
 int bn254_g2_add_step(const int32_t* r, const int32_t* base, int32_t* r_out, int32_t* c_out,
                       int B, cudaStream_t stream) {
-  BN254_LAUNCH(k_g2_add_step, r, base, r_out, c_out);
+  return launch_lines(nullptr, 1, nullptr, r, base, c_out, r_out, B, stream);
 }
 
 int bn254_g2_dbl_step(const int32_t* r, int32_t* r_out, int32_t* c_out, int B,
                       cudaStream_t stream) {
-  BN254_LAUNCH(k_g2_dbl_step, r, r_out, c_out);
+  return launch_lines(nullptr, 1, nullptr, r, nullptr, c_out, r_out, B, stream);
 }
 
 int bn254_fq2_mul_fused(const int32_t* a, const int32_t* b, int32_t* out, int B,

@@ -4,8 +4,9 @@ bn254_tpu/pallas_fused.py (queue rows 5-11, 13-20).
 Every wrapper takes packed contiguous ``[c, 16, B]`` int32 tensors (the
 ``pallas_fused.pack`` layout: the tower pytree's Fq leaves stacked in
 order).  For a CUDA tensor it launches its kernel from csrc/fused.cu (rows
-5-11, 13-16, the Fq2 square root, which serves rows 3-4, and the prepared
-Miller loop, which serves rows 13 and 8) or csrc/groups.cu (rows 17-20);
+5-11, 13-16, the Fq2 square root, which serves rows 3-4, the prepared
+Miller loop, which serves rows 13 and 8, and the prepared-G2 lines, which
+serve rows 14 and 7) or csrc/groups.cu (rows 17-20);
 for a CPU tensor it runs its plain version below; any other device
 raises.
 
@@ -481,6 +482,36 @@ def g2_add_step_plain(r, base):
     batch = r.shape[-1]
     nr, c = _add_step(r.view(3, 2, N, batch), base.view(2, 2, N, batch))
     return nr.reshape(6, N, batch), c.reshape(6, N, batch)
+
+
+def _mul_by_q(x, y):
+    """The twist Frobenius of affine G2 coordinates (pairing._mul_by_q,
+    mod.rs:693-699): (tx conj(x), ty conj(y)), Fq2 [2, 16, B] each."""
+    conj = lambda a: _s(a[0], _neg(a[1]), dim=-3)
+    return MK._fq2_mul(_s(conj(x), conj(y)), _s(_const2(C.TWIST_MUL_BY_Q_X, x),
+                                                 _const2(C.TWIST_MUL_BY_Q_Y, y))).unbind(0)
+
+
+STEP_KINDS = range(5)          # 0: doubling; additions of 1: Q, 2: -Q, 3: pi(Q), 4: -pi^2(Q)
+
+
+def g2_precompute_plain(q, kinds):
+    """pairing.precompute's steps (mod.rs:701-728) over stacked tensors: R
+    = (qx, qy, 1), then per kind a doubling step or a mixed addition of its
+    base (_dbl_step's and _add_step's formulas), the Frobenius bases by
+    _mul_by_q applied twice.  Returns the lines [n, 6, 16, B]."""
+    counts.plain_calls["g2_precompute"] += 1
+    batch = q.shape[-1]
+    qx, qy = q.view(2, 2, N, batch).unbind(0)
+    q1 = _mul_by_q(qx, qy)
+    q2x, q2y = _mul_by_q(*q1)
+    bases = (None, _s(qx, qy), _s(qx, _neg(qy)), _s(*q1), _s(q2x, _neg(q2y)))
+    r = _s(qx, qy, _fq12_one(qx[0])[0, 0])      # z = (1, 0)
+    lines = []
+    for kind in np.asarray(kinds).ravel():
+        r, c = _dbl_step(r) if kind == 0 else _add_step(r, bases[kind])
+        lines.append(c)
+    return torch.stack(lines).reshape(len(lines), 6, N, batch)
 
 
 def fq12_fold_line_plain(f, c, px, py):
@@ -986,11 +1017,35 @@ def fq12_sqr(a):
     return out
 
 
+def g2_precompute(q, kinds):
+    """The lines of pairing.precompute in one kernel: R = (qx, qy, 1), then
+    per kind a G2 doubling step (0) or a mixed addition of the kind's base
+    (STEP_KINDS), and each step's raw line (ell_0, ell_vw, ell_vv).
+
+    q: affine G2 [4, 16, B]; kinds: n ints, the same for every lane.
+    Returns the lines [n, 6, 16, B], the layout miller_loop takes.  Kernel:
+    csrc/fused.cu k_g2_precompute (four threads a lane over
+    precompute_schedule.py's rounds, the Frobenius bases made in the
+    kernel), serving rows 14 and 7 as pairing_jax.precompute's scan runs
+    them."""
+    kinds = np.asarray(kinds, dtype=np.int32).ravel()
+    if not np.isin(kinds, STEP_KINDS).all():
+        raise ValueError(f"g2_precompute: step kinds must lie in {STEP_KINDS}, got {kinds}")
+    if not on_cuda(q):
+        return g2_precompute_plain(q, kinds)
+    batch, n = q.shape[-1], len(kinds)
+    check("g2_precompute", batch, q.device, (q, (4,)))
+    lines = torch.empty((n, 6, N, batch), dtype=torch.int32, device=q.device)
+    launch("g2_precompute", batch, _digits_on(kinds, q.device).data_ptr(), n, q.data_ptr(),
+           lines.data_ptr())
+    return lines
+
+
 def g2_dbl_step(r):
     """G2 Miller doubling step and its line: r [6, 16, B] Jacobian ->
-    (r' [6, 16, B], (ell_0, ell_vw, ell_vv) [6, 16, B]).  Kernel:
-    csrc/fused.cu k_g2_dbl_step, replacing pallas_fused.py
-    _call_impl("g2_dbl_step")."""
+    (r' [6, 16, B], (ell_0, ell_vw, ell_vv) [6, 16, B]).  Kernel: one step
+    of csrc/fused.cu k_g2_precompute (four threads a lane), replacing
+    pallas_fused.py _call_impl("g2_dbl_step")."""
     if not on_cuda(r):
         return g2_dbl_step_plain(r)
     batch = r.shape[-1]
@@ -1003,8 +1058,8 @@ def g2_dbl_step(r):
 def g2_add_step(r, base):
     """G2 mixed addition step and its line: r [6, 16, B] Jacobian, base
     [4, 16, B] affine -> (r' [6, 16, B], (ell_0, ell_vw, ell_vv) [6, 16, B]).
-    Kernel: csrc/fused.cu k_g2_add_step, replacing pallas_fused.py
-    _call_impl("g2_add_step")."""
+    Kernel: one step of csrc/fused.cu k_g2_precompute (four threads a
+    lane), replacing pallas_fused.py _call_impl("g2_add_step")."""
     if not on_cuda(r):
         return g2_add_step_plain(r, base)
     batch = r.shape[-1]

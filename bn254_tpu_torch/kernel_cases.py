@@ -48,11 +48,12 @@ from . import ladder_schedule as LS
 from . import limbs as L
 from . import mont_kernels as MK
 from . import msm as M
+from . import precompute_schedule as PS
 from . import probes as PB
 from . import team_schedule as TS
 from .convert import pack
 from .fields import FR
-from .pairing import _PRE_KINDS, _SQR_FLAGS
+from .pairing import _LINE_KINDS, _PRE_KINDS, _SQR_FLAGS
 from .spec import constants as C
 from .spec import field as SF
 from .spec import group as SG
@@ -455,15 +456,12 @@ _ADD = {c: 11 * _MUL[c] + 5 * _SQR[c] for c in (1, 2)}
 _ADD_KNOWN_Z = {c: 10 * _MUL[c] + 4 * _SQR[c] for c in (1, 2)}
 _DBL = {c: 2 * _MUL[c] + 5 * _SQR[c] for c in (1, 2)}
 _MADD = {c: 8 * _MUL[c] + 3 * _SQR[c] for c in (1, 2)}
-# The one-thread tower and line formulas (csrc/bn254.cuh; rows 7, 8, 10,
-# 13, 14): an Fq12 square 12 Fq2 products (its 2 Fq6 products), the G2
-# doubling step 4 products, 6 squares and 2 scalings, the addition step
-# 11 products and 2 squares, the fold 13 products and 2 scalings; the
+# The tower and line functions (rows 8, 10, 13): an Fq12 square 12 Fq2
+# products (its 2 Fq6 products), the fold 13 products and 2 scalings; the
 # team kernels (csrc/fq12_team.cuh, rows 9, 11): 6 Fq2 products a
-# Granger-Scott square, 18 an Fq12 product
+# Granger-Scott square, 18 an Fq12 product; the G2 line steps (rows 14
+# and 7) from their schedule (lines_work)
 _FQ12_SQR = 12 * FQ2_MUL_LAZY_PRODUCTS
-_G2_DBL_STEP = 4 * FQ2_MUL_LAZY_PRODUCTS + 6 * FQ2_SQR_PRODUCTS + 2 * _FQ2_SCALE
-_G2_ADD_STEP = 11 * FQ2_MUL_LAZY_PRODUCTS + 2 * FQ2_SQR_PRODUCTS
 _FOLD = 13 * FQ2_MUL_LAZY_PRODUCTS + 2 * _FQ2_SCALE
 _CYC_SQR_FQ2, _FQ12_MUL_FQ2 = 6, 18
 
@@ -547,6 +545,25 @@ def _w_miller(q, p, kinds):
     work = sum(fq2_mul_work(m) for i in range(len(k))
                for r in TS.step_rounds(k, i)[0] for m in TS.ROUNDS[r].muls)
     return int(_lanes(p) * work), _io(_lanes(p), 4 + 2 + 12 + 6) + 4 * len(k)
+
+
+def line_steps_work(kinds) -> float:
+    """Products' work a lane of the G2 line steps of these kinds, the Fq2
+    products of the rounds k_g2_precompute runs (precompute_schedule.step_rounds)
+    at fq2_mul_work: 22 a doubling step (4 general products, 6 squares;
+    its two halvings are no products), 31.5 an addition (11 and 2), the
+    first products of an addition after a doubling step in its rounds."""
+    k = np.asarray(kinds).ravel()
+    return sum(fq2_mul_work(m) for i in range(len(k))
+               for r in PS.step_rounds(k, i)[0] for m in PS.ROUNDS[r].muls)
+
+
+def lines_work(q, kinds):
+    """precompute's steps (line_steps_work: 64 x 22 + 23 x 31.5) and the 4
+    lazy products of its Frobenius bases, 2,142.5 products' work a lane.
+    Reads q and the kinds once, writes the lines: 4 + 87 x 6 Fq a lane."""
+    work = line_steps_work(kinds) + 4 * FQ2_MUL_LAZY_PRODUCTS
+    return _per_lane(work, q), _io(_lanes(q), 4 + 6 * len(kinds)) + 4 * len(kinds)
 
 
 def loop_work(coeffs, px, py, flags):
@@ -710,9 +727,12 @@ CASES = (
                FU.miller_precompute, FU.miller_precompute_plain,
                lambda rng, b, d: (residues(rng, 4, b, d), residues(rng, 2, b, d),
                                   _PRE_KINDS.reshape(-1, 1)), _w_miller),
+    # one step of k_g2_precompute, four threads a lane (3: fewer lanes than
+    # a warp's eight teams)
     KernelCase("g2_add_step", "g2_add_step", _FU_CU, f"{_PF}:1151", FU.g2_add_step,
                FU.g2_add_step_plain, _fq((6, 4)),
-               lambda r, base: (_per_lane(_G2_ADD_STEP, r), _io(_lanes(r), 22))),
+               lambda r, base: (_per_lane(line_steps_work([1]), r), _io(_lanes(r), 22)),
+               batches=(16384, 1000, 3)),
     # one step of k_miller_loop, six threads a lane (3: fewer lanes than a
     # warp's five teams)
     KernelCase("fq12_fold_line", "fq12_fold_line", _FU_CU, f"{_PF}:1029",
@@ -754,7 +774,8 @@ CASES = (
                batches=(16384, 1000, 3)),
     KernelCase("g2_dbl_step", "g2_dbl_step", _FU_CU, f"{_PF}:1145", FU.g2_dbl_step,
                FU.g2_dbl_step_plain, _fq((6,)),
-               lambda r: (_per_lane(_G2_DBL_STEP, r), _io(_lanes(r), 18))),
+               lambda r: (_per_lane(line_steps_work([0]), r), _io(_lanes(r), 18)),
+               batches=(16384, 1000, 3)),
     *(KernelCase("glv_ladder", f"glv_ladder[g{nc}]", _GR_CU, f"{_PF}:1760", FU.glv_ladder,
                  FU.glv_ladder_plain, lambda rng, b, d, nc=nc: glv_args(rng, nc, b, d),
                  glv_work, depth=glv_depth)
@@ -812,6 +833,13 @@ CASES = (
                lambda rng, b, d: (residues(rng, 87 * 6, b, d).view(87, 6, 16, b),
                                   *residues(rng, 2, b, d), _SQR_FLAGS),
                loop_work, batches=(16384, 1000, 3)),
+    # the 87 lines of the prepared-G2 entry in one launch (the JAX package's
+    # scan over rows 14 and 7 and its 2 Frobenius additions); 3 lanes leave
+    # most of a one-warp block of 8 empty
+    KernelCase("g2_precompute", "g2_precompute", _FU_CU, f"{_PF}:1145/1151",
+               FU.g2_precompute, FU.g2_precompute_plain,
+               lambda rng, b, d: (residues(rng, 4, b, d), _LINE_KINDS),
+               lines_work, batches=(16384, 1000, 3)),
 )
 
 

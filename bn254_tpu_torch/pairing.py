@@ -10,9 +10,9 @@ final exponentiation.
 
 ``precompute`` + ``miller_loop`` are the prepared-G2 entry (87 line
 coefficients computed once per G2 point, then 87 folds), the JAX
-package's unfused device route: one step kernel per coefficient (rows 7
-and 14), then the 64 squares and 87 folds (rows 13 and 8) in one
-miller_loop kernel, as the JAX package's scan runs them.  They run no
+package's unfused device route: the 87 G2 steps (rows 14 and 7) in one
+g2_precompute kernel, then the 64 squares and 87 folds (rows 13 and 8) in
+one miller_loop kernel, as the JAX package's scans run them.  They run no
 Miller kernel (row 6), so they check it independently.  The tower-op
 steps ``_doubling_step`` / ``_addition_step`` are a third spelling, held
 against both in the tests.
@@ -49,6 +49,10 @@ assert len(_PRE_KINDS) + 2 == C.N_COEFFS == 87
 _SQR_FLAGS = np.array(
     [k == 0 for k in _PRE_KINDS] + [False, False], dtype=np.bool_)
 assert _SQR_FLAGS.sum() == 64 and len(_SQR_FLAGS) == 87
+
+# precompute's 87 steps: the 85 scheduled, then the additions of the 2
+# Frobenius bases (kinds 3 = pi(Q), 4 = -pi^2(Q): fused.STEP_KINDS).
+_LINE_KINDS = np.concatenate([_PRE_KINDS, [3, 4]]).astype(np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -122,23 +126,13 @@ def _frobenius_points(qa):
 def precompute(q_affine):
     """87 line-coefficient triples per batch element (mod.rs:701-728), the
     prepared-G2 entry: q_affine is an affine G2 batch ((x, y) of Fq2).
-    One g2_dbl_step kernel (row 14) per doubling step and one g2_add_step
-    kernel (row 7) per addition step and per Frobenius base, as the JAX
-    package's device route (pairing_jax.py:149-167, which computes both
-    steps and selects; the kinds are static here, so only the step taken
-    runs).  Returns the (ell_0, ell_vw, ell_vv) tree with a leading 87
-    axis on every leaf."""
-    batch, device = q_affine[0][0].shape[-1], q_affine[0][0].device
-    bases = {1: pack(q_affine), 2: pack((q_affine[0], T.fq2_neg(q_affine[1])))}
-    r = pack((q_affine[0], q_affine[1], T.fq2_ones(batch, device)))
-    coeffs = []
-    for kind in _PRE_KINDS:
-        r, c = FU.g2_dbl_step(r) if kind == 0 else FU.g2_add_step(r, bases[kind])
-        coeffs.append(c)
-    for base in _frobenius_points(q_affine):
-        r, c = FU.g2_add_step(r, pack(base))
-        coeffs.append(c)
-    c = torch.stack(coeffs)                                  # [87, 6, 16, B]
+    One g2_precompute kernel runs the 85 scheduled steps and the 2
+    Frobenius additions (rows 14 and 7, which the JAX package's device
+    route, pairing_jax.py:130-177, runs as a scan that computes both steps
+    and selects; the kinds are static here, so only the step taken runs).
+    Returns the (ell_0, ell_vw, ell_vv) tree with a leading 87 axis on
+    every leaf: views of the one [87, 6, 16, B] tensor."""
+    c = FU.g2_precompute(pack(q_affine), _LINE_KINDS)
     return ((c[:, 0], c[:, 1]), (c[:, 2], c[:, 3]), (c[:, 4], c[:, 5]))
 
 

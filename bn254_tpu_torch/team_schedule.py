@@ -20,10 +20,12 @@ work done in the doubling step's last (``step_rounds``), so that an
 addition takes the five product passes its 28 products need and a
 doubling step the seven its 37 need.  Products of 1/2 are halvings
 (``post = HALF``), exact in the field, so r and f are the one-thread
-formulas' (bn254.cuh ``fq12_sqr``, ``g2_dbl_step``, ``g2_add_step``) and
-the plain fold's (fused._fold) limb for limb: the same field values,
-every slot fully reduced.  The prepared Miller loop runs the square and
-fold rounds over a slot map of its own (loop_schedule.py).
+square's (bn254.cuh ``fq12_sqr``), the plain steps' (fused._dbl_step,
+_add_step) and the plain fold's (fused._fold) limb for limb: the same
+field values, every slot fully reduced.  The prepared Miller loop runs the
+square and fold rounds over a slot map of its own (loop_schedule.py), the
+prepared-G2 lines the doubling and addition products
+(precompute_schedule.py).
 
 ``check_round`` proves a round race-free (no slot written by one task and
 read or written by another); ``header`` emits the tables as C initializers

@@ -8,7 +8,7 @@ decompression, once on one NVIDIA GPU and check them.
 Phases (any failure raises, so the exit code is not 0):
 
 1. Print the card (nvidia-smi name and power limit), build every CUDA
-   kernel of counts.KERNELS (twenty-nine) from bn254_tpu_torch/csrc/ and
+   kernel of counts.KERNELS (thirty) from bn254_tpu_torch/csrc/ and
    print the build's seconds and ptxas's registers, stack and shared
    memory of the MSM kernels, of the group law's five (one add, one
    double, the MSM's Horner + lane fold, the double-and-add and the GLV
@@ -16,8 +16,10 @@ Phases (any failure raises, so the exit code is not 0):
    a team of six threads a lane (csrc/fq12_team.cuh): the cyclotomic
    ladder (row 11), the Miller kernel (row 6), the Fq12 product (row 9)
    and the prepared Miller loop (row 8l, whose one-step launches are rows
-   8 and 13), and of the Fermat chain (row 5), the Fq2 square root and
-   the final exponentiation's Fq12 inverse and Frobenius maps; every
+   8 and 13), of the prepared-G2 lines (row 14l, a team of four, whose
+   one-step launches are rows 14 and 7), and of the Fermat chain (row 5),
+   the Fq2 square root and the final exponentiation's Fq12 inverse and
+   Frobenius maps; every
    other kernel runs one thread a lane (every entry's numbers stay in
    bn254_tpu_torch/_build/build.log).
 2. Kernel vs plain version: each kernel on CUDA tensors made from a seed
@@ -35,7 +37,8 @@ Phases (any failure raises, so the exit code is not 0):
    squares; the lazy Fq2 product's column extremes; the probes at their
    scripts' batches, 32768 and 8192) at B = 16384 and at a ragged B =
    1000 (n = 5000 for the MSM kernels; the Fq12 product, the prepared
-   Miller loop and its one-step forms, the fold and the Fq12 square, also
+   Miller loop and its one-step forms, the fold and the Fq12 square, the
+   prepared-G2 lines and theirs, the doubling and addition steps, also
    at B = 3, fewer lanes than a warp's five teams; the Fermat chain, the Fq12
    inverse, each Frobenius map and the double-and-add also at B = 3 and
    at pairing_batch's B = 1, the Fq2 square root also at B = 3, the
@@ -101,12 +104,16 @@ Phases (any failure raises, so the exit code is not 0):
    the G1 inputs.
 8. Prepared-G2 Miller loop, with the counters reset first:
    ``miller_loop(precompute(qa), pa)`` on the pairing's 16384 pairs equal
-   to the fused Miller loop limb for limb, all 87 coefficient triples of 4
-   lanes equal to the spec's, and both calls timed; the loop is one
-   miller_loop launch (no one-op fq12_sqr or fq12_fold_line).  Then the
-   miller_loop kernel against its plain version on the path's own lines
-   and the fold (row 8) on the pairing path's own Frobenius lines, both
-   at tolerance 0, and the kernel timed beside its bound.
+   to the fused Miller loop limb for limb, all 87 coefficient triples of
+   every lane equal to the one-op route's (rows 14 and 7 chained as
+   one-step launches, the Frobenius bases on row 3) and of 4 lanes to the
+   spec's, and each call timed; ``precompute`` is one g2_precompute
+   launch and the loop one miller_loop launch (no g2_dbl_step,
+   g2_add_step, fq2_mul, fq12_sqr or fq12_fold_line).  Then the
+   g2_precompute kernel against its plain version on the pairs' Q, the
+   miller_loop kernel on the path's own lines and the fold (row 8) on
+   the pairing path's own Frobenius lines, all at tolerance 0, and the
+   two path kernels timed beside their bounds.
 9. Throughput probes, with the counters reset first: ``probe_mont``
    (B = 32768, chain 64) and ``probe_tower`` (B = 8192, chain 32, the
    seven ops of bench_tower.py).  Every chain, and every op's one call
@@ -158,7 +165,7 @@ TIMED = (ROW_12, "msm_accumulate[g1,skew]", "fq12_frob[conj]", "point_add[g2]",
 PTXAS = ("k_msm_bucket_sort", "k_msm_accumulate", "k_msm_bucket_reduce", "k_fq12_cyc_pow",
          "k_miller_precompute", "k_fq12_mul", "k_fq_pow", "k_fq12_inv", "k_fq12_frob",
          "k_point_add", "k_point_double", "k_msm_combine", "k_point_mul", "k_glv_ladder",
-         "k_fq2_sqrt", "k_miller_loop")
+         "k_fq2_sqrt", "k_miller_loop", "k_g2_precompute")
 SPREAD = ("miller_precompute",)     # also the min and max of the timed reps (row 6)
 
 
@@ -709,12 +716,35 @@ def phase_glv_timing(inputs, card, records):
                                           "bound_ms": bound, "bound_by": by})
 
 
+def one_step_lines(qa, dev):
+    """precompute's 87 lines by the one-op route: rows 14 and 7 chained as
+    one-step launches, the Frobenius bases on row 3 (pairing's
+    _frobenius_points) -> [87, 6, 16, B]."""
+    from bn254_tpu_torch import fused as FU
+    from bn254_tpu_torch import pairing as P
+    from bn254_tpu_torch import tower as T
+    from bn254_tpu_torch.convert import pack
+
+    bases = {1: pack(qa), 2: pack((qa[0], T.fq2_neg(qa[1])))}
+    bases.update(zip((3, 4), map(pack, P._frobenius_points(qa))))
+    r = pack((qa[0], qa[1], T.fq2_ones(qa[0][0].shape[-1], dev)))
+    lines = []
+    for kind in P._LINE_KINDS:
+        r, line = FU.g2_dbl_step(r) if kind == 0 else FU.g2_add_step(r, bases[int(kind)])
+        lines.append(line)
+    return torch.stack(lines)
+
+
 def phase_prepared_miller(dev, ps, qs, card, records):
     """precompute + miller_loop (the prepared-G2 entry) on the pairing's
-    pairs, with the counters reset around it: equal to the fused Miller
-    loop limb for limb, and all 87 coefficient triples of 4 lanes equal to
-    the spec's; then the loop kernel and the fold (rows 8l, 8) against
-    their plain versions on the paths' own inputs.  Returns its launches."""
+    pairs, with the counters reset around it: one g2_precompute launch and
+    one miller_loop launch; all 87 lines of every lane equal to the one-op
+    route's (rows 14 and 7 chained) and 4 lanes' to the spec's, and the
+    loop's result to the fused Miller loop's, limb for limb.  Then the
+    line and loop kernels against their plain versions on the path's own
+    inputs and the fold (row 8) on the pairing path's own Frobenius lines,
+    all at tolerance 0, and both kernels timed beside their bounds.
+    Returns its launches."""
     from bn254_tpu_torch import convert, counts
     from bn254_tpu_torch import fused as FU
     from bn254_tpu_torch import groups as G
@@ -737,6 +767,9 @@ def phase_prepared_miller(dev, ps, qs, card, records):
     require(all(torch.equal(a, b) for a, b in zip(convert.tree_leaves(f),
                                                   convert.tree_leaves(fused))),
             "precompute + miller_loop differs from the fused Miller loop")
+    c = torch.stack(convert.tree_leaves(coeffs), 1)          # [87, 6, 16, B]
+    require(torch.equal(c, one_step_lines(qa, dev)),
+            "precompute's lines differ from the one-op route's (rows 14 and 7 chained)")
     ops2 = SG.G2_PARAMS[0]
     lanes = [0, 1, N_MAIN // 2, N_MAIN - 1]
     sub = convert.tree_map(lambda c: c[:, :, lanes], coeffs)
@@ -746,17 +779,20 @@ def phase_prepared_miller(dev, ps, qs, card, records):
         require(got == SG.precompute(SG.to_affine(qs[lane], ops2)),
                 f"prepared G2 lane {lane}: coefficients differ from the spec")
     times = (cuda_ms(lambda: P.precompute(qa), 3), cuda_ms(lambda: P.miller_loop(coeffs, pa), 3),
-             cuda_ms(lambda: P._miller_f_fused(qa, pa), 3))
+             cuda_ms(lambda: P._miller_f_fused(qa, pa), 3),
+             cuda_ms(lambda: one_step_lines(qa, dev), 3))
     print(f"prepared Miller B={N_MAIN}: miller_loop(precompute) = fused Miller loop limb for "
-          f"limb; 87 coefficient triples of 4 lanes = spec; precompute {times[0]:.2f} ms, "
-          f"miller_loop {times[1]:.2f} ms (fused Miller loop {times[2]:.2f} ms) [{card}]",
-          flush=True)
+          f"limb; 87 lines of every lane = one-op route, of 4 lanes = spec; precompute "
+          f"{times[0]:.2f} ms (one-op route {times[3]:.2f} ms), miller_loop {times[1]:.2f} ms "
+          f"(fused Miller loop {times[2]:.2f} ms) [{card}]", flush=True)
 
-    # the kernels on the paths' own inputs: the loop on precompute's lines,
-    # the fold on the pairing's two Frobenius lines after the Miller kernel
-    c, (px, py) = torch.stack(convert.tree_leaves(coeffs), 1), pa
+    # the kernels on the paths' own inputs: the lines on the pairs' Q, the
+    # loop on precompute's lines, the fold on the pairing's two Frobenius
+    # lines after the Miller kernel
+    (px, py), line_args = pa, (pack(qa), P._LINE_KINDS)
     args = (c, px, py, P._SQR_FLAGS)
-    checks = [("miller_loop", FU.miller_loop(*args), FU.miller_loop_plain(*args))]
+    checks = [("g2_precompute", c, FU.g2_precompute_plain(*line_args)),
+              ("miller_loop", FU.miller_loop(*args), FU.miller_loop_plain(*args))]
     f, r = FU.miller_precompute(pack(qa), pack(pa), P._PRE_KINDS.reshape(-1, 1))
     for base in P._frobenius_points(qa):
         r, line = FU.g2_add_step(r, pack(base))
@@ -768,14 +804,19 @@ def phase_prepared_miller(dev, ps, qs, card, records):
         require(err == 0, f"{name} on the prepared-Miller path differs from its plain "
                           f"version by {err}")
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
-    loop_ms = cuda_ms(lambda: FU.miller_loop(*args), 10)
-    bound, by = KC.bound_ms(*KC.loop_work(*args))
-    print(f"prepared Miller B={N_MAIN}: miller_loop kernel = plain version on precompute's "
-          f"lines, fold = plain version on the pairing's 2 Frobenius lines (max_abs_err 0); "
-          f"miller_loop kernel {loop_ms:.4f} ms (bound {bound:.4f} ms, {by}) [{card}]",
+    timed = []
+    for name, fn, work in (("g2_precompute", lambda: FU.g2_precompute(*line_args),
+                            KC.lines_work(*line_args)),
+                           ("miller_loop", lambda: FU.miller_loop(*args), KC.loop_work(*args))):
+        bound, by = KC.bound_ms(*work)
+        timed.append(f"{name} kernel {cuda_ms(fn, 10):.4f} ms (bound {bound:.4f} ms, {by})")
+    print(f"prepared Miller B={N_MAIN}: g2_precompute kernel = plain version on the pairs' Q, "
+          f"miller_loop kernel = plain version on precompute's lines, fold = plain version on "
+          f"the pairing's 2 Frobenius lines (max_abs_err 0); {'; '.join(timed)} [{card}]",
           flush=True)
     return check_launches("prepared-Miller", counts.PREPARED_MILLER_PATH, launches, plain,
-                          absent=("fq12_sqr", "fq12_fold_line"))
+                          absent=("g2_dbl_step", "g2_add_step", "fq2_mul", "fq12_sqr",
+                                  "fq12_fold_line"))
 
 
 def phase_probes(card, records):

@@ -95,9 +95,8 @@ def test_to_affine_vs_jax():
 
 def test_precompute_all_87_coefficients():
     """Every one of the 87 line-coefficient triples of precompute (on the
-    g2_dbl_step / g2_add_step wrappers' plain versions) against the spec's
-    and the JAX package's (whose tests check the count, the first and the
-    last)."""
+    g2_precompute wrapper's plain version) against the spec's and the JAX
+    package's (whose tests check the count, the first and the last)."""
     qa_spec = [golden.PREPARED_G2_Q, SG.to_affine(_g2(0x5EED), OPS2)]
     qa_np = tuple(JT.fq2_encode([q[k] for q in qa_spec]) for k in range(2))
     coeffs = P.precompute(convert.from_numpy(qa_np, "cpu"))
@@ -152,14 +151,22 @@ def test_g2_dbl_step_plain_and_tower_steps_vs_jax():
     assert_same(P._addition_step(r, base), on_tape(JP._addition_step, r_np, base_np))
 
 
+def _stub_launch(name, batch, *args):
+    """fused.launch without the card: the arguments must match the C
+    entry's signature (_build._SIGS); count the launch."""
+    from bn254_tpu_torch import _build
+    assert len(args) == len(_build._SIGS[name]), (name, len(args))
+    counts.launches[name] += 1
+
+
 def test_prepared_miller_reaches_its_kernels_with_valid_arguments(monkeypatch):
     """precompute + miller_loop with the wrappers taking their kernel
     branch on CPU tensors and the launch stubbed out: every check passes,
-    64 g2_dbl_step, 23 g2_add_step (21 scheduled + 2 Frobenius) and one
-    miller_loop launch (its 64 squares and 87 folds), no one-op fq12_sqr
-    or fq12_fold_line launch, and no plain version runs."""
-    def launch(name, batch, *args):
-        counts.launches[name] += 1
+    one g2_precompute launch (the 87 G2 steps, the Frobenius bases among
+    them) with its entry's arguments and one miller_loop launch (its 64
+    squares and 87 folds), no one-op g2_dbl_step, g2_add_step, fq2_mul,
+    fq12_sqr or fq12_fold_line launch, and no plain version runs."""
+    launch = _stub_launch
 
     for mod in (MK, FU):
         monkeypatch.setattr(mod, "on_cuda", lambda t: True)
@@ -170,8 +177,9 @@ def test_prepared_miller_reaches_its_kernels_with_valid_arguments(monkeypatch):
     counts.reset()
     P.miller_loop(P.precompute(qa), pa)
     assert sorted(k for k, v in counts.launches.items() if v) == sorted(counts.PREPARED_MILLER_PATH)
-    assert [counts.launches[k] for k in ("g2_dbl_step", "g2_add_step", "miller_loop",
-                                         "fq12_sqr", "fq12_fold_line")] == [64, 23, 1, 0, 0]
+    assert [counts.launches[k] for k in ("g2_precompute", "miller_loop", "g2_dbl_step",
+                                         "g2_add_step", "fq2_mul", "fq12_sqr",
+                                         "fq12_fold_line")] == [1, 1, 0, 0, 0, 0, 0]
     assert not any(counts.plain_calls.values())
 
 
@@ -298,10 +306,10 @@ def test_main_path_reaches_every_kernel_with_valid_arguments(monkeypatch):
     """The main path with the wrappers taking their kernel branch on CPU
     tensors and the launch stubbed out: every wrapper's device, dtype,
     shape and contiguity check passes, each of the path's thirteen kernels
-    is reached, and no plain version runs (what chip_smoke.py asserts on the
-    card).  Batches 1 to 5 cover the product reduction's odd tails."""
-    def launch(name, batch, *args):
-        counts.launches[name] += 1
+    is reached with its entry's arguments, and no plain version runs (what
+    chip_smoke.py asserts on the card).  Batches 1 to 5 cover the product
+    reduction's odd tails."""
+    launch = _stub_launch
 
     for mod in (MK, FU):
         monkeypatch.setattr(mod, "on_cuda", lambda t: True)
@@ -318,6 +326,7 @@ def test_main_path_reaches_every_kernel_with_valid_arguments(monkeypatch):
     assert sorted(k for k, v in counts.launches.items() if v) == sorted(counts.PAIRING_PATH)
     assert not any(counts.plain_calls.values())
     assert counts.launches["miller_precompute"] == 6
+    assert counts.launches["g2_add_step"] == 2 * 6   # the Frobenius steps, one-step k_g2_precompute
     assert counts.launches["fq12_cyc_pow"] == 3 * 6
     assert counts.launches["fq12_inv"] == 6          # one final exponentiation a call
     assert counts.launches["fq12_frob"] == 11 * 6    # 4 Frobenius maps, 7 conjugations

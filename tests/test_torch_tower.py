@@ -404,14 +404,15 @@ def _team_half_mod(x):
     return torch.from_numpy(np.stack(out).astype(np.int32)).reshape(x.shape)
 
 
-def team_lin(state, lin, by, slots=None):
+def team_lin(state, lin, vb, slots=None):
     """As the kernel's team_lin: each sum its positive slots added, then
-    its negative slots subtracted; xi on b's sum; then the post step.
-    `slots` names the schedule's slots (the Miller kernel's by default)."""
+    its negative slots subtracted; xi on b's sum; then the post step; a
+    virtual slot VIRT + j reads slot vb + j.  `slots` names the
+    schedule's slots (the Miller kernel's by default)."""
     from bn254_tpu_torch import team_schedule as TS
     acc = torch.zeros_like(state[0])
     split = TS._split(lin, slots or TS.NAMES)
-    bp, bn, ap, an = ([by if i == TS.VIRT else i for i in ts] for ts in split)
+    bp, bn, ap, an = ([vb + i - TS.VIRT if i >= TS.VIRT else i for i in ts] for ts in split)
     for pos, neg, xi in ((bp, bn, True), (ap, an, False)):
         for i in pos:
             acc = FU._add(acc, state[i])
@@ -426,18 +427,19 @@ def team_lin(state, lin, by, slots=None):
     return acc
 
 
-def team_round(state, rnd, by, slots=None):
+def team_round(state, rnd, vb, slots=None):
     """One round on the slot list `state` (Fq2 tensors [2, 16, B]), in place;
-    the products are lazy Fq2 products, as the kernel's."""
+    the products are lazy Fq2 products, as the kernel's; virtual slots
+    read from vb on."""
     from bn254_tpu_torch import team_schedule as TS
     slots = slots or TS.NAMES
     TS.check_round(rnd, TS.TEAM, slots)
     if rnd.muls:
-        x = torch.stack([team_lin(state, m.x, by, slots) for m in rnd.muls])
-        y = torch.stack([team_lin(state, m.y, by, slots) for m in rnd.muls])
+        x = torch.stack([team_lin(state, m.x, vb, slots) for m in rnd.muls])
+        y = torch.stack([team_lin(state, m.y, vb, slots) for m in rnd.muls])
         for m, v in zip(rnd.muls, FU._fq2_mul_lazy(x, y)):
             state[slots[m.dst]] = v
-    new = [(c.dst, team_lin(state, c.lin, by, slots)) for c in rnd.lins]
+    new = [(c.dst, team_lin(state, c.lin, vb, slots)) for c in rnd.lins]
     for dst, v in new:
         state[slots[dst]] = v
 
