@@ -79,6 +79,7 @@ _SIGS = {
     "fq2_sqrt": "pipippp",       # digits of (q-3)/4, n, of (q-1)/2, n, a, root, ok
     "miller_loop": "pipppp",     # square flags, n, coeffs [n, 6, 16, B], px, py, f
     "g2_precompute": "pipp",     # kinds, n, q, lines [n, 6, 16, B]
+    "to_affine": "ipippp",       # ncoords, digits of q - 2, n, points, xy, inf
 }
 assert tuple(_SIGS) == counts.KERNELS
 
@@ -208,6 +209,9 @@ def library():
             fn.restype = ctypes.c_int
         lib.bn254_error_string.argtypes = [ctypes.c_int]
         lib.bn254_error_string.restype = ctypes.c_char_p
+        lib.bn254_to_affine_geometry.argtypes = [ctypes.c_int, ctypes.c_int,
+                                                 ctypes.c_void_p, ctypes.c_void_p]
+        lib.bn254_to_affine_geometry.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 

@@ -22,13 +22,20 @@ KERNELS = (
     "fq2_sqrt",
     "miller_loop",
     "g2_precompute",
+    "to_affine",
 )
 
 # The kernels each main path launches (chip_smoke.py asserts every one).
-PAIRING_PATH = KERNELS[:11] + ("fq12_inv", "fq12_frob")   # the final exponentiation
-MSM_PATH = ("mont_mul", "mont_sqr", "fq2_mul", "fq2_sqr", "fq_pow",   # to_affine
+PAIRING_PATH = ("to_affine",                                     # G1 and G2, one launch each
+                "fq2_mul",                                       # the Frobenius bases
+                "miller_precompute", "g2_add_step", "fq12_fold_line",
+                "fq12_mul", "fq12_cyc_sqr", "fq12_cyc_pow",
+                "fq12_inv", "fq12_frob")                          # the final exponentiation
+MSM_PATH = ("to_affine",
             "msm_combine",                                        # Horner + lane fold
             "msm_bucket_sort", "msm_accumulate", "msm_bucket_reduce")   # row 19
+# The one-op field kernels that to_affine's launch replaced on those two paths
+TO_AFFINE_ONE_OPS = ("mont_mul", "mont_sqr", "fq2_sqr", "fq_pow")
 GLV_PATH = ("mont_mul",                  # endo: beta x
             "point_add", "glv_ladder")   # p1 + p2, the ladder
 PREPARED_MILLER_PATH = ("g2_precompute",   # the 87 lines, the Frobenius bases among them

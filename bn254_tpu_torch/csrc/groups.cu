@@ -128,6 +128,42 @@
 // digits differ per lane ([nsteps, B], read one word a step).  Bound: the
 // Montgomery products, 7 + 16 a step for G1 and 16 + 43 for G2 (the add
 // with a zero digit returns res and needs none).
+//
+// k_to_affine (serves pallas_kernels.py's mont_mul, mont_sqr, fq2_mul,
+// fq2_sqr and pallas_fused.py's fq_pow, pk:239/247/175/181 and pf:1246,
+// as bn254_tpu/groups.py to_affine and bn254_tpu/msm.py:133-156 run
+// them): Jacobian points [3C, 16, B] -> affine (x, y) [2C, 16, B] and the
+// infinity mask, in one launch.  The JAX MSM's shared inversion, block by
+// block: each block inverts its lanes' denominators d (z for G1, the norm
+// z0^2 + z1^2 for G2; d = 0, infinity, taken as 1) with one Fermat chain.
+// Each thread holds K lanes, kAffineThreads apart (every load coalesced),
+// and runs Montgomery's trick over them serially: its running product of
+// d, kept at each lane in out's first coordinate (the lane's own slot,
+// which the lane's x overwrites later), ends at the thread's total.  The
+// block takes exclusive prefix and suffix products of the threads' totals
+// by warp shuffles of the 8 words, then over the warps' totals (warp 0,
+// through shared memory); lane 0 of warp 0 raises the block's total to
+// q - 2 on fq_pow_chain, and warp 0 folds the inverse into each warp's
+// factor (the warps before and after it).  A thread's total inverse is its
+// two exclusive products times its warp's factor, and the backward pass
+// gives each lane d^-1 from the running product of the lane before (two
+// products a lane).  Then, in registers, z^-1 (d^-1, or (z0 d^-1, -z1
+// d^-1), fq2_inv's form), z^-2, z^-3, x z^-2, y z^-3, written once with
+// inf; a lane with d = 0 writes (0, 0) and inf = 1, as the per-lane
+// route's inv(0) = 0 gives.  Every value is fully reduced, so the grouping
+// of the products changes no limb.  The chain is serial on one thread
+// while its block waits (about row 5's 0.19 ms), so the blocks of a wave
+// run their chains side by side and waves run them one after another:
+// the C entry takes the fewest lanes a thread that fit the batch in one
+// wave (affine_lanes_per_thread), one lane a thread at the pairing's
+// 16384.  Keeping the running products in out rather than in
+// registers holds a thread's registers to the same count for any K.
+// Bound: the products at 2^20 (about 3 a lane for the trick, 108/136 + 3
+// G1 and 11.5 G2 for the coordinates); the serial depth is a block's
+// chain, its scans and a thread's K lanes.
+#include <algorithm>
+#include <atomic>
+
 #include "fq12_team.cuh"
 #include "groups.cuh"
 
@@ -389,6 +425,184 @@ __global__ void k_point_mul(const int32_t* __restrict__ p, const int32_t* __rest
   store_pt(out, B, lane, res);
 }
 
+// k_to_affine's block and its cap of blocks an SM (one Fermat chain a
+// scheduler; more chains an SM, or more waves, ran slower: PERF.md)
+constexpr int kAffineThreads = 128, kAffineWarps = kAffineThreads / 32, kAffineBlocksPerSm = 4;
+
+__device__ __forceinline__ Fq shfl_up(const Fq& a, int k) {
+  Fq r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.v[j] = __shfl_up_sync(0xFFFFFFFFu, a.v[j], k);
+  return r;
+}
+
+__device__ __forceinline__ Fq shfl_down(const Fq& a, int k) {
+  Fq r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.v[j] = __shfl_down_sync(0xFFFFFFFFu, a.v[j], k);
+  return r;
+}
+
+__device__ __forceinline__ Fq shfl_idx(const Fq& a, int src) {
+  Fq r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.v[j] = __shfl_sync(0xFFFFFFFFu, a.v[j], src);
+  return r;
+}
+
+// Exclusive products of a over the warp's first n lanes (n <= 32): pre =
+// the lanes below, suf = the lanes above, each 1 at its end; the n lanes'
+// product comes back in total.
+__device__ __forceinline__ void warp_exclusive(Fq& pre, Fq& suf, Fq& total, const Fq& a,
+                                               int n) {
+  const int wl = threadIdx.x % 32;
+  Fq inc = a, sinc = a;
+#pragma unroll 1
+  for (int k = 1; k < n; k *= 2) {
+    const Fq up = shfl_up(inc, k), down = shfl_down(sinc, k);
+    if (wl >= k) fq_mul(inc, inc, up);
+    if (wl + k < n) fq_mul(sinc, sinc, down);
+  }
+  total = shfl_idx(inc, n - 1);
+  pre = shfl_up(inc, 1);
+  suf = shfl_down(sinc, 1);
+  if (wl == 0) pre = fq_const_one();
+  if (wl == n - 1) suf = fq_const_one();
+}
+
+// The lane's z and its denominator d: z itself (G1) or the norm z0^2 +
+// z1^2 (G2), taken as 1 where it is 0; returns whether it was 0.
+__device__ __forceinline__ void affine_denom(Fq& d, const Fq& z) { d = z; }
+__device__ __forceinline__ void affine_denom(Fq& d, const Fq2& z) {
+  Fq s;
+  fq_sqr(d, z.c0);
+  fq_sqr(s, z.c1);
+  fq_add(d, d, s);
+}
+
+template <class F>
+__device__ __forceinline__ bool affine_load_denom(F& z, Fq& d, const int32_t* p, int B,
+                                                  int lane) {
+  load(z, p, 2 * kCoords<F>, B, lane);
+  affine_denom(d, z);
+  const bool zero = f_is_zero(d);
+  if (zero) d = fq_const_one();
+  return zero;
+}
+
+// z^-1 from d^-1: d^-1 itself (G1), (z0 d^-1, -z1 d^-1) (G2, fq2_inv's form)
+__device__ __forceinline__ void affine_zinv(Fq& r, const Fq& z, const Fq& dinv) { r = dinv; }
+__device__ __forceinline__ void affine_zinv(Fq2& r, const Fq2& z, const Fq& dinv) {
+  Fq t;
+  fq_mul(r.c0, z.c0, dinv);
+  fq_mul(t, z.c1, dinv);
+  fq_neg(r.c1, t);
+}
+
+// bn254_tpu/groups.py to_affine with bn254_tpu/msm.py:133-156's shared
+// inversion, one Fermat chain a block: lane j of thread t is
+// blockIdx.x * K * kAffineThreads + j * kAffineThreads + t, j < K.  The
+// thread's prefix products wait in out's first coordinate (each lane's
+// own slot) between the two passes.
+template <class F>
+__global__ void __launch_bounds__(kAffineThreads)
+k_to_affine(const int32_t* __restrict__ digits, int ndigits, const int32_t* __restrict__ p,
+            int32_t* __restrict__ out, uint8_t* __restrict__ inf, int K, int B) {
+  constexpr int C = kCoords<F>, T = kAffineThreads;
+  __shared__ Fq s_tot[kAffineWarps];      // each warp's total, then its factor
+  const int t = threadIdx.x, w = t / 32;
+  const int first = blockIdx.x * K * T + t;    // K lanes a thread (affine_lanes_per_thread)
+  const int n = first < B ? min(K, (B - first + T - 1) / T) : 0;   // the thread's lanes
+  F z;
+  Fq d, run = fq_const_one();
+#pragma unroll 1
+  for (int j = 0; j < n; ++j) {            // run = d[0] ... d[j], kept at lane j
+    const int lane = first + j * T;
+    affine_load_denom(z, d, p, B, lane);
+    if (j) fq_mul(run, run, d);
+    else run = d;
+    store(out, 0, B, lane, run);
+  }
+  Fq ex_pre, ex_suf, total;
+  warp_exclusive(ex_pre, ex_suf, total, run, 32);
+  if (t % 32 == 0) s_tot[w] = total;
+  __syncthreads();
+  if (w == 0) {       // the warps' totals: each warp's factor, the block's inverse in it
+    Fq wp, ws, tinv;
+    warp_exclusive(wp, ws, total, t < kAffineWarps ? s_tot[t] : fq_const_one(), kAffineWarps);
+    if (t == 0) fq_pow_chain(tinv, total, PowDigits{digits, ndigits});
+    tinv = shfl_idx(tinv, 0);
+    if (t < kAffineWarps) {
+      fq_mul(wp, wp, ws);
+      fq_mul(s_tot[t], wp, tinv);
+    }
+  }
+  __syncthreads();
+  Fq inv;                                  // the inverse of run, the thread's total
+  fq_mul(inv, ex_pre, ex_suf);
+  fq_mul(inv, inv, s_tot[w]);
+#pragma unroll 1
+  for (int j = n - 1; j >= 0; --j) {       // Montgomery's trick backwards
+    const int lane = first + j * T;
+    const bool zero = affine_load_denom(z, d, p, B, lane);
+    Fq dinv = inv;
+    if (j) {
+      Fq prev;
+      load(prev, out, 0, B, lane - T);
+      fq_mul(dinv, inv, prev);
+      fq_mul(inv, inv, d);
+    }
+    F x, y;
+    if (zero) {
+      f_set_zero(x);
+      f_set_zero(y);
+    } else {
+      F zinv, zi2, zi3;
+      affine_zinv(zinv, z, dinv);
+      f_sqr(zi2, zinv);
+      f_mul(zi3, zi2, zinv);
+      load(x, p, 0, B, lane);
+      load(y, p, C, B, lane);
+      f_mul(x, x, zi2);
+      f_mul(y, y, zi3);
+    }
+    store(out, 0, B, lane, x);
+    store(out, C, B, lane, y);
+    inf[lane] = zero;
+  }
+}
+
+// K, the lanes a thread: the fewest that fit the batch in one wave of
+// blocks, at most kAffineBlocksPerSm blocks an SM and no more than the
+// registers let reside (the occupancy query).  One lane a thread at the
+// pairing's 16384 lanes.  The wave is queried once for each device;
+// returns the error of a failed query.
+constexpr int kMaxDevices = 64;
+
+template <class F>
+cudaError_t affine_lanes_per_thread(int B, int& K) {
+  static std::atomic<int> waves[kMaxDevices];   // blocks of one wave, 0 until queried
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess && dev >= kMaxDevices) rc = cudaErrorInvalidDevice;
+  if (rc != cudaSuccess) return rc;
+  int wave = waves[dev].load(std::memory_order_relaxed);
+  if (!wave) {
+    int sms = 0, resident = 0;
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, k_to_affine<F>,
+                                                         kAffineThreads, 0);
+    if (rc == cudaSuccess && (sms < 1 || resident < 1)) rc = cudaErrorInvalidConfiguration;
+    if (rc != cudaSuccess) return rc;
+    wave = sms * std::min(resident, kAffineBlocksPerSm);
+    waves[dev].store(wave, std::memory_order_relaxed);
+  }
+  const int threads = (B + kAffineThreads - 1) / kAffineThreads;
+  K = threads > wave ? (threads + wave - 1) / wave : 1;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -476,6 +690,30 @@ int bn254_msm_combine(int ncoords, const int32_t* totals, int W, int c, int32_t*
     in = dst;
     n = blocks;
   }
+}
+
+// k_to_affine's shape at batch B on the current device: K lanes a thread
+// and the threads of a block.  A failed query's error is returned, and
+// cleared so that no later launch reports it.
+int bn254_to_affine_geometry(int ncoords, int B, int* lanes, int* threads) {
+  *threads = kAffineThreads;
+  const cudaError_t rc = ncoords == 1 ? affine_lanes_per_thread<Fq>(B, *lanes)
+                                      : affine_lanes_per_thread<Fq2>(B, *lanes);
+  if (rc != cudaSuccess) cudaGetLastError();
+  return static_cast<int>(rc);
+}
+
+// blocks of kAffineThreads threads, K * kAffineThreads lanes
+int bn254_to_affine(int ncoords, const int32_t* digits, int ndigits, const int32_t* p,
+                    int32_t* out, uint8_t* inf, int B, cudaStream_t stream) {
+  int K = 1, threads = 0;
+  if (const int rc = bn254_to_affine_geometry(ncoords, B, &K, &threads)) return rc;
+  const int blocks = (B + K * kAffineThreads - 1) / (K * kAffineThreads);
+  if (ncoords == 1)
+    k_to_affine<Fq><<<blocks, kAffineThreads, 0, stream>>>(digits, ndigits, p, out, inf, K, B);
+  else
+    k_to_affine<Fq2><<<blocks, kAffineThreads, 0, stream>>>(digits, ndigits, p, out, inf, K, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int bn254_point_mul(int ncoords, const int32_t* p, const int32_t* k, int nbits, int32_t* out,

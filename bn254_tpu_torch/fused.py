@@ -6,7 +6,8 @@ Every wrapper takes packed contiguous ``[c, 16, B]`` int32 tensors (the
 order).  For a CUDA tensor it launches its kernel from csrc/fused.cu (rows
 5-11, 13-16, the Fq2 square root, which serves rows 3-4, the prepared
 Miller loop, which serves rows 13 and 8, and the prepared-G2 lines, which
-serve rows 14 and 7) or csrc/groups.cu (rows 17-20);
+serve rows 14 and 7) or csrc/groups.cu (rows 17-20, and the affine
+conversion, which serves rows 1-5);
 for a CPU tensor it runs its plain version below; any other device
 raises.
 
@@ -764,6 +765,82 @@ def point_mul_plain(ncoords: int, p, k_limbs, num_bits: int):
     return torch.stack(res).reshape(p.shape)
 
 
+AFFINE_PLAIN_BLOCK = 1024      # to_affine_plain's lanes a block
+
+
+def to_affine_geometry(ncoords: int, batch: int) -> tuple[int, int]:
+    """(K lanes a thread, threads a block) of k_to_affine at this batch on
+    the current card: its C entry picks K from the card's SMs and the
+    kernel's residency.  Raises if the card's queries fail."""
+    import ctypes
+
+    from ._build import library
+
+    lib, lanes, threads = library(), ctypes.c_int(), ctypes.c_int()
+    rc = lib.bn254_to_affine_geometry(ncoords, batch, ctypes.byref(lanes),
+                                      ctypes.byref(threads))
+    if rc:
+        raise RuntimeError(f"to_affine geometry query failed: "
+                           f"{lib.bn254_error_string(rc).decode()}")
+    return lanes.value, threads.value
+
+
+def _block_prefix(d):
+    """Inclusive products along the last axis of d [..., 16, n] (a
+    Hillis-Steele scan: log2(n) rounds of products)."""
+    k, n = 1, d.shape[-1]
+    while k < n:
+        d = torch.cat([d[..., :k], L.mont_mul(d[..., k:], d[..., :-k], _F)], -1)
+        k *= 2
+    return d
+
+
+def to_affine_plain(ncoords: int, p, block: int = AFFINE_PLAIN_BLOCK):
+    """(affine (x, y) [2c, 16, B], inf [B] bool) of Jacobian points p
+    [3c, 16, B]: bn254_tpu/msm.py:133-156's shared inversion, block by
+    block, as k_to_affine runs it (its blocks hold K lanes a thread:
+    to_affine_geometry; no block size changes a limb).  Each block of
+    `block` lanes (the last one short) inverts its denominators d (z, or
+    the norm z0^2 + z1^2 for G2; d = 0 taken as 1) with one Fermat chain
+    on the product of the block, and each lane's d^-1 is the product of
+    the block's lanes before it, after it and that inverse.  Then z^-1 =
+    d^-1 (G1) or (z0 d^-1, -z1 d^-1) (G2), x z^-2 and y z^-3; lanes with
+    z = 0 give (0, 0) and inf True, as the per-lane Fermat route's
+    inv(0) = 0 does."""
+    counts.plain_calls["to_affine"] += 1
+    A = _coord(ncoords)
+    batch = p.shape[-1]
+    x, y, z = A.point(p).unbind(0)
+    if ncoords == 1:
+        d = z
+    else:
+        s0, s1 = L.mont_sqr(z, _F).unbind(-3)
+        d = _add(s0, s1)
+    inf = L.is_zero(d)
+    one = _const(1, d)
+    nb = -(-batch // block)
+    d = torch.cat([torch.where(inf, one, d), one[:, :1].expand(N, nb * block - batch)], -1)
+    d = d.view(N, nb, block).transpose(0, 1)                        # [nb, 16, block]
+    pre = _block_prefix(d)
+    suf = _block_prefix(d.flip(-1)).flip(-1)
+    ones = one[:, :1].expand(nb, N, 1)
+    pre_ex = torch.cat([ones, pre[..., :-1]], -1)
+    suf_ex = torch.cat([suf[..., 1:], ones], -1)
+    tinv = _pow_chain(pre[..., -1:], C.Q - 2)
+    dinv = L.mont_mul(L.mont_mul(pre_ex, suf_ex, _F), tinv.expand(nb, N, block), _F)
+    dinv = dinv.transpose(0, 1).reshape(N, nb * block)[:, :batch]
+    if ncoords == 1:
+        zinv = dinv
+    else:
+        c0, c1 = L.mont_mul(z, _s(dinv, dinv, dim=-3), _F).unbind(-3)
+        zinv = _s(c0, _neg(c1), dim=-3)
+    zinv = A.select(inf, torch.zeros_like(zinv), zinv)
+    zi2 = A.sqr(zinv)
+    zi3 = A.mul((zi2, zinv))
+    ax, ay = A.mul((x, zi2), (y, zi3))
+    return torch.stack([ax, ay]).reshape(2 * ncoords, N, batch), inf
+
+
 def glv_ladder_plain(ncoords: int, pts, digits):
     """The JAX package's scan spelling (glv.py:302-319): res starts at
     (0, 1, 0); per digit a double, the two-level table select (digit 0
@@ -1236,6 +1313,27 @@ def point_mul(ncoords: int, p, k_limbs, num_bits: int):
     launch("point_mul", batch, ncoords, p.data_ptr(), k_limbs.data_ptr(), num_bits,
            out.data_ptr())
     return out
+
+
+def to_affine(ncoords: int, p):
+    """(affine (x, y) [2c, 16, B], inf [B] bool) of packed Jacobian points
+    [3c, 16, B]; points at infinity give (0, 0).  Kernel: csrc/groups.cu
+    k_to_affine (one Fermat chain a block, Montgomery's trick within it,
+    K lanes a thread: to_affine_geometry), serving
+    pallas_kernels.py's mont_mul, mont_sqr, fq2_mul, fq2_sqr and
+    pallas_fused.py's fq_pow (pk:239/247/175/181, pf:1246) as
+    bn254_tpu/groups.py to_affine and bn254_tpu/msm.py:133-156 run them."""
+    if not on_cuda(p):
+        return to_affine_plain(ncoords, p)
+    _coord(ncoords)
+    batch = p.shape[-1]
+    check("to_affine", batch, p.device, (p, (3 * ncoords,)))
+    digits = _digits_on(pow_digits(C.Q - 2), p.device)
+    out = torch.empty((2 * ncoords, N, batch), dtype=torch.int32, device=p.device)
+    inf = torch.empty(batch, dtype=torch.bool, device=p.device)
+    launch("to_affine", batch, ncoords, digits.data_ptr(), digits.numel(), p.data_ptr(),
+           out.data_ptr(), inf.data_ptr())
+    return out, inf
 
 
 def glv_ladder(ncoords: int, pts, digits):

@@ -9,7 +9,8 @@ JAX package.  ``double`` and ``add`` are one kernel each (fused.py
 ``point_double`` / ``point_add``, queue rows 17-18), for G1 and for G2,
 where the JAX package runs ``pallas_fused.point_double`` / ``point_add`` on
 the TPU; ``scalar_mul``, the JAX package's scan over them, is one kernel
-too (``point_mul``); on CPU tensors the wrappers take their plain
+too (``point_mul``), and so is ``to_affine`` (``to_affine``, a Fermat
+inversion a block of lanes); on CPU tensors the wrappers take their plain
 versions, which are the JAX package's jnp formulas.  ``add`` is the
 unified branchless add (3-way select): it agrees with the reference on
 P + inf, inf + Q, P + P, P + (-P) and the generic case.
@@ -180,16 +181,18 @@ def scalar_mul(K, p, k_limbs, num_bits: int = 256):
 
 
 def to_affine(K, p):
-    """((x, y), inf_mask): one Fermat inversion per element (mod.rs:198-217).
+    """((x, y), inf_mask) (mod.rs:198-217), one to_affine kernel: the
+    inverses of z come from one Fermat inversion a block of lanes shared
+    by Montgomery's trick (bn254_tpu/msm.py:133-156), where the JAX
+    package's to_affine runs one a point; the values are the same.
 
     Infinity slots (z = 0, inverted to 0) return (0, 0) and inf_mask True;
     callers select on the mask (the pairing maps them to f = 1, the MSM
     sends them to digit 0)."""
-    zinv = K.inv(p[2])
-    zi2 = K.sqr(zinv)
-    x = K.mul(p[0], zi2)
-    y = K.mul(p[1], K.mul(zi2, zinv))
-    return (x, y), is_zero_point(K, p)
+    xy, inf = FU.to_affine(K.COORDS, pack(p))
+    if K is DevFq:
+        return (xy[0], xy[1]), inf
+    return ((xy[0], xy[1]), (xy[2], xy[3])), inf
 
 
 def to_jacobian(K, xy, inf_mask=None):

@@ -20,7 +20,9 @@ value and P + (-P) fold pairs (``combine_points``), and the
 double-and-add's scalars r, r - 1, 0 and 1 on points in and outside the
 G2 subgroup (``point_mul_args``); the Fq2 square root takes random
 elements and squares with 0, the alpha = -1 lanes, a non-residue and
-x^3 + b2 of real G2 points planted (``fq2_sqrt_args``).
+x^3 + b2 of real G2 points planted (``fq2_sqrt_args``); the affine
+conversion random coordinates with z = 0 on every block's ends, on a
+whole span of blocks and on the last lane (``to_affine_args``).
 The lazy Fq2 product's inputs plant the extremes of its columns
 (``fq2_extremes``); the probes chain each op at its script's batch and
 chain length (``probe_args``).
@@ -379,6 +381,32 @@ def fq2_sqrt_args(rng, batch: int, device):
     return (a,)
 
 
+AFFINE_ZERO_SPAN = 1024     # 8 whole k_to_affine blocks at 16384 lanes (K = 1)
+
+
+def to_affine_args(rng, ncoords: int, batch: int, device):
+    """(ncoords, Jacobian points [3c, 16, B]) for the affine conversion:
+    random residues (the edge values 0, 1, q - 1 on lanes 0-2; at B = 1 a
+    finite lane), and, past B = 1, z = 0 on the first and last lane of
+    every 128 (so on every block's first and last lane for any block of a
+    multiple of 128 lanes), on lane B - 1, and on the whole last span of
+    AFFINE_ZERO_SPAN lanes where B holds two (all-infinity blocks, as
+    msm._pad makes); for G2, z = (0, z1) on lane 3 and (z0, 0) on lane 4,
+    finite lanes whose norm is a square."""
+    if batch == 1:
+        return ncoords, PB.random_residues(rng, 3 * ncoords, 1, "cpu", MK.FQ_MOD).to(device)
+    p = residues(rng, 3 * ncoords, batch, "cpu")
+    lane = torch.arange(batch)
+    zero = (lane % 128 == 0) | (lane % 128 == 127) | (lane == batch - 1)
+    if batch >= 2 * AFFINE_ZERO_SPAN:
+        zero |= lane // AFFINE_ZERO_SPAN == batch // AFFINE_ZERO_SPAN - 1
+    p[2 * ncoords:, :, zero] = 0
+    if ncoords == 2 and batch > 4:
+        p[4, :, 3] = 0
+        p[5, :, 4] = 0
+    return ncoords, p.to(device)
+
+
 def fq2_extremes(rng, batch: int, device):
     """Fq2 operands (a, b) [2, 16, B] that drive the lazy product's column
     differences to their extremes (tests/test_pallas_fused.py's
@@ -633,6 +661,39 @@ def combine_depth(ncoords, totals, c):
     return (W - 1) * c * _DBL[ncoords] + (W - 1 + lanes.bit_length() - 1) * _ADD[ncoords]
 
 
+_AFFINE_COORDS = {1: FQ_SQR_PRODUCTS + 3,                           # z^-2, z^-3, x, y
+                  2: 2 + FQ2_SQR_PRODUCTS + 3 * FQ2_MUL_LAZY_PRODUCTS}  # and z^-1 from d^-1
+_NORM = {1: 0, 2: 2 * FQ_SQR_PRODUCTS}
+
+
+def to_affine_work(ncoords, p):
+    """The shared inversion: 3 products a finite lane (the prefix, two in
+    the backward pass) and one Fermat chain for the batch; G2's norm (two
+    Fq squares) on every lane; on each finite lane z^-1 (G2: two
+    products), z^-2, z^-3, x z^-2 and y z^-3.  Reads the points, writes
+    (x, y) and one byte of inf a lane."""
+    b = p.shape[-1]
+    finite = int(_finite(p, ncoords).sum())
+    products = (finite * (3 + _AFFINE_COORDS[ncoords]) + _NORM[ncoords] * b
+                + pow_chain_work(C.Q - 2))
+    return int(products), _io(b, 5 * ncoords) + b
+
+
+def to_affine_depth(ncoords, p):
+    """Products' work on the chain of a block's first lane: its thread's K
+    lanes (fused.to_affine_geometry on the card; off it, where no kernel
+    runs, one lane a thread and to_affine_plain's block) each with its
+    norm and a prefix product, the two warp scans (5 products each), warp
+    0's two scans over the block's warps, the block's Fermat chain, the
+    warp's factor and the thread's inverse (2 each), then K lanes of the
+    backward pass (the norm again and two products) and coordinates."""
+    k, threads = (FU.to_affine_geometry(ncoords, p.shape[-1]) if p.is_cuda
+                  else (1, FU.AFFINE_PLAIN_BLOCK))
+    warps = threads // 32
+    return (k * (2 * _NORM[ncoords] + 3 + _AFFINE_COORDS[ncoords]) + 2 * 5
+            + 2 * (warps.bit_length() - 1) + pow_chain_work(C.Q - 2) + 4)
+
+
 def _scalar_bits(k, num_bits):
     """[num_bits, B] bool: bit i of each lane's scalar limbs [16, B]."""
     i = torch.arange(num_bits, device=k.device)
@@ -840,6 +901,13 @@ CASES = (
                FU.g2_precompute, FU.g2_precompute_plain,
                lambda rng, b, d: (residues(rng, 4, b, d), _LINE_KINDS),
                lines_work, batches=(16384, 1000, 3)),
+    # the affine conversion in one launch (the JAX package's Fermat
+    # inversion and products over rows 1-5, with msm.py's shared inversion)
+    *(KernelCase("to_affine", f"to_affine[g{nc}]", _GR_CU,
+                 f"{_PK}:239/247/175/181, {_PF}:1246", FU.to_affine, FU.to_affine_plain,
+                 lambda rng, b, d, nc=nc: to_affine_args(rng, nc, b, d), to_affine_work,
+                 batches=(16384, 1000, 1), depth=to_affine_depth)
+      for nc in (1, 2)),
 )
 
 

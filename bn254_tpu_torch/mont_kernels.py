@@ -15,6 +15,7 @@ products into one call).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -26,7 +27,10 @@ from .spec import constants as C
 FQ_MOD = L.Mod(C.Q)
 
 
+@functools.lru_cache(maxsize=None)
 def _words_arg(mod: L.Mod):
+    """The modulus's 9 words (q, then -q^-1 mod 2^32) as the host array the
+    C entry reads, built once per Mod."""
     return (ctypes.c_uint32 * 9)(*mod.words())
 
 
@@ -40,9 +44,8 @@ def mont_mul(a, b, mod: L.Mod):
     batch = a.shape[-1]
     check("mont_mul", batch, a.device, (a, ()), (b, ()))
     out = torch.empty_like(a)
-    words = _words_arg(mod)
     launch("mont_mul", batch, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-           ctypes.addressof(words))
+           ctypes.addressof(_words_arg(mod)))
     return out
 
 
@@ -54,8 +57,7 @@ def mont_sqr(a, mod: L.Mod):
     batch = a.shape[-1]
     check("mont_sqr", batch, a.device, (a, ()))
     out = torch.empty_like(a)
-    words = _words_arg(mod)
-    launch("mont_sqr", batch, a.data_ptr(), out.data_ptr(), ctypes.addressof(words))
+    launch("mont_sqr", batch, a.data_ptr(), out.data_ptr(), ctypes.addressof(_words_arg(mod)))
     return out
 
 

@@ -7,11 +7,13 @@ sum_i k_i * P_i over G1 or G2, in four steps:
    points and zero scalars; cut each scalar into W signed base-2^c digits
    (W covers num_bits + 1 bits, so the top window takes the last carry);
    send infinity inputs to digit 0; convert the points to affine.  The
-   affine conversion is ``groups.to_affine``, one Fermat inversion (one
-   fq_pow kernel) per point, where the JAX package shares one inversion
-   across the batch with prefix/suffix products (msm.py:133-156): affine
-   coordinates are unique, so the accumulate kernel gets the same bits
-   for every finite point either way, and infinity lanes carry digit 0.
+   affine conversion is ``fused.to_affine`` on the packed points (the
+   kernel of ``groups.to_affine``, its packed output kept): the
+   JAX package's shared inversion with prefix/suffix products
+   (msm.py:133-156), one Fermat chain a block of lanes instead of one for
+   the batch.  Affine coordinates are unique, so the accumulate kernel
+   gets the same bits for every finite point either way; infinity lanes
+   get (0, 0) where the JAX package leaves (x, y), and carry digit 0.
 2. ``fused.msm_accumulate`` (queue row 19): every lane of every window
    accumulates its own buckets and reduces them -> [W, 3c, 16, lanes].
 3. Horner over the windows, high to low (c doubles and one add per
@@ -103,9 +105,9 @@ def prepare(K, points, scalars, c: int, num_bits: int = 254, lanes: int = LANES)
     points, scalars = _pad(K, points, scalars, lanes)
     nwindows = (num_bits + 1 + c - 1) // c        # +1 bit: signed-carry headroom
     dgs = _signed_digits(_digits_any_c(scalars, c, nwindows), c)
-    (ax, ay), inf = G.to_affine(K, points)
+    xy, inf = FU.to_affine(K.COORDS, pack(points))
     dgs = torch.where(inf[None, :], 0, dgs)       # infinity inputs add nothing
-    return pack((ax, ay)), dgs
+    return xy, dgs
 
 
 def _msm_fused(K, points, scalars, c: int, num_bits: int = 254, lanes: int = LANES):

@@ -2,8 +2,9 @@
 bn254_tpu/pairing_jax.py.
 
 The main path (``pairing``, ``pairing_batch``) is the JAX package's fused
-TPU path, kernel for kernel: to_affine (Fermat inversions on the fq_pow
-kernel), one whole-Miller kernel for the 85 scheduled steps, the 2
+TPU path, kernel for kernel: to_affine (one to_affine kernel a group: a
+Fermat inversion a block of lanes, shared by prefix and suffix products),
+one whole-Miller kernel for the 85 scheduled steps, the 2
 Frobenius addition steps and their line folds on their own kernels, the
 infinity select, the batch-wide Fq12 product (pairing_batch only) and the
 final exponentiation.

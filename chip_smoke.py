@@ -8,7 +8,7 @@ decompression, once on one NVIDIA GPU and check them.
 Phases (any failure raises, so the exit code is not 0):
 
 1. Print the card (nvidia-smi name and power limit), build every CUDA
-   kernel of counts.KERNELS (thirty) from bn254_tpu_torch/csrc/ and
+   kernel of counts.KERNELS (thirty-one) from bn254_tpu_torch/csrc/ and
    print the build's seconds and ptxas's registers, stack and shared
    memory of the MSM kernels, of the group law's five (one add, one
    double, the MSM's Horner + lane fold, the double-and-add and the GLV
@@ -18,8 +18,9 @@ Phases (any failure raises, so the exit code is not 0):
    and the prepared Miller loop (row 8l, whose one-step launches are rows
    8 and 13), of the prepared-G2 lines (row 14l, a team of four, whose
    one-step launches are rows 14 and 7), and of the Fermat chain (row 5),
-   the Fq2 square root and the final exponentiation's Fq12 inverse and
-   Frobenius maps; every
+   the Fq2 square root, the final exponentiation's Fq12 inverse and
+   Frobenius maps and the affine conversion (one Fermat chain a block,
+   which serves rows 1-5); every
    other kernel runs one thread a lane (every entry's numbers stay in
    bn254_tpu_torch/_build/build.log).
 2. Kernel vs plain version: each kernel on CUDA tensors made from a seed
@@ -34,7 +35,10 @@ Phases (any failure raises, so the exit code is not 0):
    fold pairs; scalars r, r - 1, 0, 1 on points in and outside the G2
    subgroup; the Fq2 square root's planted lanes (0, alpha = -1, a
    non-residue, x^3 + b2 of real G2 points) among random elements and
-   squares; the lazy Fq2 product's column extremes; the probes at their
+   squares; the lazy Fq2 product's column extremes; the affine
+   conversion's random points with z = 0 on the first and last lane of
+   every 128, on the last lane and on a whole block, and G2's z with one
+   coordinate 0; the probes at their
    scripts' batches, 32768 and 8192) at B = 16384 and at a ragged B =
    1000 (n = 5000 for the MSM kernels; the Fq12 product, the prepared
    Miller loop and its one-step forms, the fold and the Fq12 square, the
@@ -42,16 +46,18 @@ Phases (any failure raises, so the exit code is not 0):
    at B = 3, fewer lanes than a warp's five teams; the Fermat chain, the Fq12
    inverse, each Frobenius map and the double-and-add also at B = 3 and
    at pairing_batch's B = 1, the Fq2 square root also at B = 3, the
+   affine conversion at 16384, 1000 and 1, the
    double-and-add over 64 bits at 16384
    lanes and r's 254 at the others; the Horner + lane fold at the MSM's
    1024 lanes and at 128 and 8), against its plain PyTorch version on the
    same tensors.  Tolerance 0: these are integers.  The first variant of
    each kernel (Fq, NAF, G1, mul, fq_mul, signed, Frobenius power 1),
    fq12_cyc_pow's binary digits (TPU row 12), the conjugation, the skewed
-   MSM and the G2 variants of the group law's five timed at the main
-   batch (CUDA events; the plain version once), beside the bound its
-   inputs give and, for the step loops and the square root, the serial
-   depth (products on one lane's chain); the Miller kernel's line also gives the min and
+   MSM and the G2 variants of the group law's five and of the affine
+   conversion timed at the main batch (CUDA events; the plain version
+   once), beside the bound its inputs give and, for the step loops, the
+   square root and the affine conversion, the serial depth (products on
+   one lane's chain); the Miller kernel's line also gives the min and
    max of its 10 timed calls.
 3. Main path, with every launch and plain-call counter reset first:
    ``pairing`` on 16384 Jacobian pairs (z != 1) made by spec additions as
@@ -60,7 +66,9 @@ Phases (any failure raises, so the exit code is not 0):
    with two infinity pairs against the spec; and an ECPAIRING-style check
    e(aP, bQ) * e(-ab P, Q) = 1.  Then every kernel must have launched
    (the final exponentiation's Fq12 inverse and Frobenius maps among
-   them) and no plain version may have run.
+   them), to_affine once a group a call and none of the one-op field
+   kernels it replaced (mont_mul, mont_sqr, fq2_sqr, fq_pow), and no
+   plain version may have run.
 4. Timing: pairings/s of ``pairing`` at B = 16384 and the time of each of
    its layers on its own: to_affine, Miller loop (without the infinity
    select) and final exponentiation, split into its easy part (the
@@ -76,16 +84,19 @@ Phases (any failure raises, so the exit code is not 0):
    each result is checked projectively against (sum k_i a_i mod r) G from
    the spec, a_i the multiple lane i holds.  Then ``batch.msm_g1`` /
    ``msm_g2`` on 64 random points against the spec's sum.  Every kernel
-   of the path must have launched, one Horner + lane fold call an MSM and
-   no one-op add or double, and no plain version may have run.
+   of the path must have launched, one to_affine and one Horner + lane
+   fold call an MSM, no one-op field kernel, add or double, and no plain
+   version may have run.
 6. MSM timing: ms per MSM and points/s for G1 2^20 and G2 2^16, and the
-   split into prepare (digits and affine conversion), accumulate and
-   Horner + lane fold (CUDA events, mean of 3 after a warm-up).  On the
+   split into prepare (digits and affine conversion; with the pad, the
+   digits and to_affine each timed alone), accumulate and Horner + lane
+   fold (CUDA events, mean of 3 after a warm-up).  On the
    same prepared inputs (all 1024 point tiles a lane for G1, 64 for G2)
    the accumulate (row 19: the bucket sort, the point-major copy, the
    accumulation and the reduce) must equal its plain version bit for bit,
-   and so must the sort, the reduce and the Horner + lane fold on their
-   own; each of the four steps is timed, and the kernels line takes the
+   and so must the sort, the reduce, the Horner + lane fold and the
+   affine conversion (on the padded points) on their own; each is timed
+   beside its bound, and the kernels line takes the
    times and bounds of row 19, of the sort, the reduce and the Horner +
    lane fold from the G1 2^20 inputs.  Then the
    G1 accumulate is timed on its worst case at that size: every nonzero
@@ -161,11 +172,12 @@ SEED = 7
 ROW_12 = "fq12_cyc_pow[binary]"     # TPU row 12: row 11's kernel on binary digits
 # timed beside each kernel's first variant
 TIMED = (ROW_12, "msm_accumulate[g1,skew]", "fq12_frob[conj]", "point_add[g2]",
-         "point_double[g2]", "msm_combine[g2]", "point_mul[g2]", "glv_ladder[g2]")
+         "point_double[g2]", "msm_combine[g2]", "point_mul[g2]", "glv_ladder[g2]",
+         "to_affine[g2]")
 PTXAS = ("k_msm_bucket_sort", "k_msm_accumulate", "k_msm_bucket_reduce", "k_fq12_cyc_pow",
          "k_miller_precompute", "k_fq12_mul", "k_fq_pow", "k_fq12_inv", "k_fq12_frob",
          "k_point_add", "k_point_double", "k_msm_combine", "k_point_mul", "k_glv_ladder",
-         "k_fq2_sqrt", "k_miller_loop", "k_g2_precompute")
+         "k_fq2_sqrt", "k_miller_loop", "k_g2_precompute", "k_to_affine")
 SPREAD = ("miller_precompute",)     # also the min and max of the timed reps (row 6)
 
 
@@ -376,7 +388,10 @@ def phase_main_path(dev, ps, qs):
     print(f"main path: pairing B={N_MAIN} (8 lanes = spec), golden pair, "
           f"5-pair batch with 2 infinity pairs, ECPAIRING check: all agree", flush=True)
 
-    return check_launches("pairing", counts.PAIRING_PATH, launches, plain)
+    require(launches["to_affine"] == 2 * 4, f"{launches['to_affine']} to_affine launches for "
+                                            f"4 pairing calls (one a group a call)")
+    return check_launches("pairing", counts.PAIRING_PATH, launches, plain,
+                          absent=counts.TO_AFFINE_ONE_OPS)
 
 
 def device_busy(fn):
@@ -535,8 +550,29 @@ def phase_msm(dev):
     require(launches["msm_combine"] == len(out) + len(small_out),
             f"{launches['msm_combine']} Horner + lane fold calls for "
             f"{len(out) + len(small_out)} MSMs")
+    require(launches["to_affine"] == len(out) + len(small_out),
+            f"{launches['to_affine']} to_affine launches for {len(out) + len(small_out)} MSMs")
     return check_launches("MSM", counts.MSM_PATH, launches, plain,
-                          absent=("point_add", "point_double")), inputs
+                          absent=("point_add", "point_double", "fq2_mul")
+                          + counts.TO_AFFINE_ONE_OPS), inputs
+
+
+def prepare_split(K, pts, ks, c):
+    """ms of ``msm.prepare`` on these inputs, then of its three parts on
+    their own: the pad to whole lanes, the signed digits and ``to_affine``
+    (CUDA events, mean of 3 after a warm-up); the rest is the pack of the
+    padded points and the digits' infinity select."""
+    from bn254_tpu_torch import fused as FU
+    from bn254_tpu_torch import msm as M
+    from bn254_tpu_torch.convert import pack
+
+    padded, scalars = M._pad(K, pts, ks, M.LANES)
+    xyz = pack(padded)
+    nwindows = (254 + 1 + c - 1) // c
+    return (cuda_ms(lambda: M.prepare(K, pts, ks, c), 3),
+            cuda_ms(lambda: M._pad(K, pts, ks, M.LANES), 3),
+            cuda_ms(lambda: M._signed_digits(M._digits_any_c(scalars, c, nwindows), c), 3),
+            cuda_ms(lambda: FU.to_affine(K.COORDS, xyz), 3))
 
 
 def phase_msm_timing(inputs, card):
@@ -548,6 +584,7 @@ def phase_msm_timing(inputs, card):
     from bn254_tpu_torch import fused as FU
     from bn254_tpu_torch import kernel_cases as KC
     from bn254_tpu_torch import msm as M
+    from bn254_tpu_torch.convert import pack
 
     records = {}
     for K, (pts, ks, _, _) in inputs.items():
@@ -557,8 +594,8 @@ def phase_msm_timing(inputs, card):
         packed, dgs = M.prepare(K, pts, ks, c)
         acc = lambda: FU.msm_accumulate(nc, packed, dgs, nb, lanes=lanes)
         totals = acc()
-        split = (cuda_ms(lambda: M.prepare(K, pts, ks, c), 3), cuda_ms(acc, 3),
-                 cuda_ms(lambda: FU.msm_combine(nc, totals, c), 3))
+        prep = prepare_split(K, pts, ks, c)
+        split = (prep[0], cuda_ms(acc, 3), cuda_ms(lambda: FU.msm_combine(nc, totals, c), 3))
         offsets, order = FU.msm_bucket_sort(dgs, nb, True, lanes)
         words = FU.msm_point_words(packed)
         buckets = FU._msm_buckets(nc, words, dgs, offsets, order, nb, True, lanes)
@@ -569,7 +606,8 @@ def phase_msm_timing(inputs, card):
                  cuda_ms(lambda: FU.msm_bucket_reduce(nc, buckets), 3))
         bound, by = KC.bound_ms(*KC.msm_work(nc, packed, dgs, nb, True, lanes))
         print(f"msm G{nc} n={n} c={c} lanes={lanes}: {total:.2f} ms = "
-              f"{n / total * 1e3:.0f} points/s; prepare {split[0]:.2f} ms, accumulate "
+              f"{n / total * 1e3:.0f} points/s; prepare {split[0]:.2f} ms (pad {prep[1]:.4f} + "
+              f"digits {prep[2]:.4f} + to_affine {prep[3]:.4f} ms on their own), accumulate "
               f"{split[1]:.2f} ms (bound {bound:.2f} ms, {by}), Horner + fold "
               f"{split[2]:.2f} ms; accumulate = sort {steps[0]:.4f} + point words "
               f"{steps[1]:.4f} + buckets {steps[2]:.4f} + reduce {steps[3]:.4f} ms [{card}]",
@@ -577,6 +615,11 @@ def phase_msm_timing(inputs, card):
         want, plain_ms = cuda_once(lambda: FU.msm_accumulate_plain(nc, packed, dgs, nb,
                                                                     lanes=lanes))
         checks = [("msm_accumulate", totals, want, plain_ms, split[1], (bound, by))]
+        xyz = pack(M._pad(K, pts, ks, lanes)[0])
+        want, plain_ms = cuda_once(lambda: FU.to_affine_plain(nc, xyz))
+        checks.append(("to_affine", FU.to_affine(nc, xyz), want, plain_ms,
+                       cuda_ms(lambda: FU.to_affine(nc, xyz), 3),
+                       KC.bound_ms(*KC.to_affine_work(nc, xyz))))
         want, plain_ms = cuda_once(lambda: FU.msm_bucket_sort_plain(dgs, nb, True, lanes))
         checks.append(("msm_bucket_sort", (offsets, order), want, plain_ms, steps[0],
                        KC.bound_ms(*KC.sort_work(dgs, nb, True, lanes))))
@@ -592,12 +635,15 @@ def phase_msm_timing(inputs, card):
             require(err == 0, f"{name}[g{nc}] on the MSM path's inputs (n={n}) "
                               f"differs from its plain version by {err}")
             depth = (f", serial depth {KC.combine_depth(nc, totals, c):.0f} products"
-                     if name == "msm_combine" else "")
+                     if name == "msm_combine" else
+                     f", serial depth {KC.to_affine_depth(nc, xyz):.0f} products"
+                     if name == "to_affine" else "")
             print(f"kernel {name}[g{nc}] on the path's inputs n={n}: max_abs_err 0; "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
                   f"({b_by}){depth} [{card}]", flush=True)
-            records[nc][name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                 "bound_ms": b_ms, "bound_by": b_by}
+            if name != "to_affine":     # its record keeps the pairing's 16384 lanes (phase 2)
+                records[nc][name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                     "bound_ms": b_ms, "bound_by": b_by}
         if nc == 1:     # the worst case at the path's size (held at n = 16384 in phase 2)
             one = torch.where(dgs[:, :1] == 0, nb - 1, dgs[:, :1])
             skew = torch.where(dgs == 0, 0, one)        # infinity points keep digit 0

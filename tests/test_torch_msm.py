@@ -183,8 +183,10 @@ def test_msm_path_reaches_every_kernel_with_valid_arguments(monkeypatch):
         assert offsets.dtype == torch.int32 and offsets.shape == (W, nb, lanes)
         assert order.dtype == torch.int32 and order.shape == (W, n // lanes, lanes)
         assert buckets.dtype == torch.int32 and buckets.shape == (W, nb - 1, 3 * nc, 16, lanes)
-    # Horner + lane fold: one call an MSM, no one-op group-law launch
-    assert counts.launches["msm_combine"] == 2
+    # to_affine and Horner + lane fold: one call an MSM, no one-op field or
+    # group-law launch
+    assert counts.launches["to_affine"] == counts.launches["msm_combine"] == 2
+    assert not any(counts.launches[k] for k in counts.TO_AFFINE_ONE_OPS + ("fq2_mul",))
     assert counts.launches["point_add"] == counts.launches["point_double"] == 0
 
     pts = torch.zeros((2, 16, 256), dtype=torch.int32)

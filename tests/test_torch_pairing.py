@@ -74,8 +74,10 @@ def test_schedules_match_jax():
 
 
 def test_to_affine_vs_jax():
-    """G1 and G2 to_affine (rows 1-5 on the CPU) on Jacobian points with
-    z != 1 and an infinity lane."""
+    """G1 and G2 to_affine (the to_affine kernel's plain version on the
+    CPU, which serves rows 1-5) on Jacobian points with z != 1 and an
+    infinity lane, and its shared inversion at blocks of 1, 2 and 4 lanes
+    against the same JAX outputs."""
     rng = random.Random(SEED)
     ps = [_g1(rng.randrange(1, R)) for _ in range(3)] + [SG.zero(OPS1)]
     qs = [SG.zero(OPS2)] + [_g2(rng.randrange(1, R)) for _ in range(3)]
@@ -89,6 +91,10 @@ def test_to_affine_vs_jax():
         (jx, jy), jinf = jax.jit(lambda p, jk=jk: JG.to_affine(jk, p))(j_np)
         assert_same((x, y), (jx, jy))
         assert inf.tolist() == np.asarray(jinf).tolist() == [SG.is_zero(p, ops) for p in pts]
+        for block in (1, 2, 4):
+            xy, binf = FU.to_affine_plain(pk.COORDS, convert.pack(port), block)
+            assert_packed(xy, (jx, jy))
+            assert torch.equal(binf, inf)
         for xv, yv, p in zip(pk.decode(x), pk.decode(y), pts):
             assert (xv, yv) == (SG.to_affine(p, ops) or (zero, zero))   # inv(0) = 0
 
@@ -305,10 +311,11 @@ def test_all_infinity_batch_is_identity():
 def test_main_path_reaches_every_kernel_with_valid_arguments(monkeypatch):
     """The main path with the wrappers taking their kernel branch on CPU
     tensors and the launch stubbed out: every wrapper's device, dtype,
-    shape and contiguity check passes, each of the path's thirteen kernels
-    is reached with its entry's arguments, and no plain version runs (what
-    chip_smoke.py asserts on the card).  Batches 1 to 5 cover the product
-    reduction's odd tails."""
+    shape and contiguity check passes, each of the path's ten kernels is
+    reached with its entry's arguments, and no plain version runs (what
+    chip_smoke.py asserts on the card): to_affine once a group a call, and
+    none of the one-op field kernels it replaced.  Batches 1 to 5 cover the
+    product reduction's odd tails."""
     launch = _stub_launch
 
     for mod in (MK, FU):
@@ -330,6 +337,9 @@ def test_main_path_reaches_every_kernel_with_valid_arguments(monkeypatch):
     assert counts.launches["fq12_cyc_pow"] == 3 * 6
     assert counts.launches["fq12_inv"] == 6          # one final exponentiation a call
     assert counts.launches["fq12_frob"] == 11 * 6    # 4 Frobenius maps, 7 conjugations
+    assert counts.launches["to_affine"] == 2 * 6
+    assert counts.launches["fq2_mul"] == 4 * 6       # the Frobenius bases
+    assert not any(counts.launches[k] for k in counts.TO_AFFINE_ONE_OPS)
 
 
 def test_import_leaves_jax_unloaded():
