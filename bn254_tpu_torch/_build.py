@@ -212,6 +212,8 @@ def library():
         lib.bn254_to_affine_geometry.argtypes = [ctypes.c_int, ctypes.c_int,
                                                  ctypes.c_void_p, ctypes.c_void_p]
         lib.bn254_to_affine_geometry.restype = ctypes.c_int
+        lib.bn254_miller_blocks_per_sm.argtypes = [ctypes.c_void_p]
+        lib.bn254_miller_blocks_per_sm.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 

@@ -27,10 +27,11 @@ KERNELS = (
 
 # The kernels each main path launches (chip_smoke.py asserts every one).
 PAIRING_PATH = ("to_affine",                                     # G1 and G2, one launch each
-                "fq2_mul",                                       # the Frobenius bases
-                "miller_precompute", "g2_add_step", "fq12_fold_line",
+                "miller_precompute",                             # the 87 steps, the Frobenius bases
                 "fq12_mul", "fq12_cyc_sqr", "fq12_cyc_pow",
                 "fq12_inv", "fq12_frob")                          # the final exponentiation
+# The one-op kernels that the Miller kernel's Frobenius tail replaced there
+FROBENIUS_TAIL_ONE_OPS = ("fq2_mul", "g2_add_step", "fq12_fold_line")
 MSM_PATH = ("to_affine",
             "msm_combine",                                        # Horner + lane fold
             "msm_bucket_sort", "msm_accumulate", "msm_bucket_reduce")   # row 19

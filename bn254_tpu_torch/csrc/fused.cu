@@ -8,8 +8,8 @@
 // prepared-G2 entry (k_g2_precompute), which replace its scan over rows 14
 // and 7.
 //
-// Two designs.  One thread a lane (rows 5, 10, 15-16: k_fq_pow,
-// k_fq12_cyc_sqr, k_fq2_mul_fused, k_fq2_sqr_fused; and k_fq12_inv and
+// Two designs.  One thread a lane (rows 5, 15-16: k_fq_pow,
+// k_fq2_mul_fused, k_fq2_sqr_fused; and k_fq12_inv and
 // the codec's Fq2 square root k_fq2_sqrt; k_fq12_frob runs one thread a
 // coefficient): 128-thread
 // blocks, the ragged edge masked; a kernel reads its operands once, runs
@@ -20,23 +20,22 @@
 // traffic of the tower state (f alone is 12 Fq = 96 words, past what the
 // register file gives one thread, and the __noinline__ tower functions
 // pass their arguments through the stack): ptxas gives fq_pow 48
-// registers and 288 bytes of stack (its table), the one-thread Fq12
-// kernels 138-236 registers and 1-3 KB stack frames (k_fq12_inv 214 and
-// 1,952 B), k_fq12_frob 86 and none.
+// registers and 288 bytes of stack (its table), k_fq12_inv 214 and a
+// 1,952 B stack frame, k_fq12_frob 86 and none.
 //
 // A team of threads of one warp a lane (fq12_team.cuh): six in rows 6, 8,
-// 9, 11, 13 (k_miller_precompute, k_miller_loop and its one-step launches
-// for rows 8 and 13, k_fq12_mul, k_fq12_cyc_pow), five lanes to a warp,
-// threads 30 and 31 idle; four in rows 14 and 7 (k_g2_precompute and its
-// one-step launches), eight lanes to a warp.  The lane's Fq12 or G2 state
-// and its product scratch sit in shared memory as Fq2 slots, each thread
-// computes its share of an op's Fq2 products, and after a __syncwarp its
-// share of the output coefficients, so no thread holds more than two Fq2
-// operands and a product, and no stack is used.  At B = 16384 a team of
+// 9, 10, 11, 13 (k_miller_precompute, k_miller_loop and its one-step
+// launches for rows 8 and 13, k_fq12_mul, k_fq12_cyc_sqr, k_fq12_cyc_pow),
+// five lanes to a warp, threads 30 and 31 idle; four in rows 14 and 7
+// (k_g2_precompute and its one-step launches), eight lanes to a warp.  The
+// lane's Fq12 or G2 state and its product scratch sit in shared memory as
+// Fq2 slots, each thread computes its share of an op's Fq2 products, and
+// after a __syncwarp its share of the output coefficients, so no thread
+// holds more than two Fq2 operands and a product, and no stack is used.  At B = 16384 a team of
 // six is 98,304 threads where one a lane gives 16,384 (fewer warps than
 // the card's 528 schedulers).  ptxas (sm_90a) and shared memory:
-//   k_miller_precompute  104 registers, no stack; 41 slots = 3,280 B a
-//                        lane, 32,800 B a block of 2 warps (static)
+//   k_miller_precompute  104 registers, no stack; 46 slots = 3,680 B a
+//                        lane, 36,800 B a block of 2 warps (static)
 //   k_miller_loop        27 slots = 2,160 B a lane, 43,200 B a block of
 //                        4 warps (static)
 //   k_g2_precompute      110 registers, no stack; a team of four: 25
@@ -45,8 +44,11 @@
 //   k_fq12_mul           180 registers, no stack; 2,400 B a lane, 48,000
 //                        B a block of 4 warps (static)
 //   k_fq12_cyc_pow       232 registers, no stack; the same 48,000 B
-// The Miller kernel is limited to 12-13 warps an SM by its shared memory,
-// k_fq12_mul and k_fq12_cyc_pow to 8 by their registers; register caps
+//   k_fq12_cyc_sqr       106 registers, no stack; 960 B a lane, 19,200
+//                        B a block of 4 warps (static)
+// The Miller kernel is limited to 12 warps an SM by its shared memory,
+// k_fq12_mul and k_fq12_cyc_pow to 8 by their registers, k_fq12_cyc_sqr
+// to 16; register caps
 // spill and run slower (regcap_sweep.py, PERF.md).  Step kinds, square
 // flags and ladder digits come as a small int32 device array that every
 // lane reads in the same order, so a warp never diverges on them.
@@ -204,13 +206,38 @@ __device__ __forceinline__ TeamThread team_thread(int lanes_per_block, int B) {
   return t;
 }
 
-// pallas_fused.py _miller_call_impl: the 85 scheduled steps.  kind 0:
-// f = f^2 and a doubling step; kind 1/2: mixed addition with +Q/-Q.  Each
-// step then folds its line into f.  A team of six threads a lane runs the
-// schedule's rounds (team_schedule.py: 3 rounds a doubling step, 3 an
-// addition after it); the lane's BN254_TEAM_SLOTS Fq2 slots (3,280 bytes)
-// sit in static shared memory, 2 warps = 10 lanes a block (32,800 bytes,
-// under the 48 KB static limit; 1 and 4 warps timed within 1 %).
+// tx, ty, tx conj(tx), ty conj(ty): Fq2 j at 16 j, c0's words, then c1's
+static __constant__ uint32_t kTwist[4 * 16] = {BN254_TWIST};
+
+__device__ __forceinline__ Fq2 twist_const(int j) {
+  Fq2 w;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    w.c0.v[i] = kTwist[16 * j + i];
+    w.c1.v[i] = kTwist[16 * j + 8 + i];
+  }
+  return w;
+}
+
+// pallas_fused.py _miller_call_impl and the JAX package's Frobenius tail
+// after it (bn254_tpu/pairing_jax.py:221-237): the 85 scheduled steps,
+// then the 2 Frobenius additions.  kind 0: f = f^2 and a doubling step;
+// kind 1-4: mixed addition with Q, -Q, pi(Q), -pi^2(Q) (fused.STEP_KINDS).
+// Each step then folds its line into f.  A team of six threads a lane
+// runs the schedule's rounds (team_schedule.py: 3 rounds a doubling step,
+// 3 an addition after it); the lane's BN254_TEAM_SLOTS Fq2 slots (46:
+// 3,680 bytes) sit in static shared memory, 2 warps = 10 lanes a block
+// (36,800 bytes, under the 48 KB static limit; 6 blocks an SM, as at the
+// 41 slots before the Frobenius bases; 1 and 4 warps timed within 1 %).
+// The addition's base is read through vb, kind k's at slot Q1X + 2 (k -
+// 1).  Where kinds 3 or 4 come, the wrapper puts a step of kind
+// BN254_MILLER_FROB_KIND first (team_schedule.device_kinds): its round
+// makes pi(Q) and -pi^2(Q), one lazy product on each of threads 0-3, from
+// conj(qx), conj(qy) and the twist factors that the start puts in the
+// product slots P0-P5 (_build.twist_consts), the same field values as
+// _mul_by_q applied twice.  The bases' products run through the steps'
+// own team_round: the same product spelled once more in this kernel, even
+// where never reached, slowed every step (PERF.md).
 constexpr int kMillerWarps = 2;
 constexpr int kMillerLanes = kTeamsPerWarp * kMillerWarps;
 constexpr int kMillerLaneWords = BN254_TEAM_SLOTS * kTeamSlot;
@@ -225,39 +252,50 @@ __global__ void k_miller_precompute(const int32_t* __restrict__ kinds, int n,
   const TeamThread t = team_thread(kMillerLanes, B);
   const int k = t.k;
   uint32_t* s = s_lanes + (t.active ? t.slot : 0) * kMillerLaneWords;
-  if (t.active) {      // f = 1, R = (qx, qy, 1), Q, -qy, (px, 0), (py, 0), b2
+  // f = 1; thread 0 Q's x, 1 its y: R = (qx, qy, 1), Q, -Q and conj(q) in
+  // P0, P1; threads 2-5 twist factor k - 2 in slot Pk, and z = 1, (px, 0),
+  // (py, 0), b2
+  if (t.active) {
     const Fq zero = fq_const_zero(), one = fq_const_one();
     st2_s(s, k, Fq2{k == 0 ? one : zero, zero});
     Fq2 v;
-    if (k < 3) {
-      load(v, q, k == 0 ? 0 : 2, B, t.lane);
-      if (k == 2) {
-        fq2_neg(v, v);
-        st2_s(s, BN254_SLOT_RZ, Fq2{one, zero});
-      } else {
-        st2_s(s, BN254_SLOT_RX + k, v);
-      }
-      st2_s(s, BN254_SLOT_QX + k, v);
-    } else if (k < 5) {
-      load(v.c0, p, k - 3, B, t.lane);
-      st2_s(s, BN254_SLOT_PX + k - 3, Fq2{v.c0, zero});
+    if (k < 2) {
+      load(v, q, 2 * k, B, t.lane);
+      st2_s(s, BN254_SLOT_RX + k, v);
+      st2_s(s, BN254_SLOT_Q1X + k, v);
+      if (k) fq2_neg(v, v);
+      st2_s(s, BN254_SLOT_Q2X + k, v);
+      if (k) fq_neg(v.c0, v.c0);
+      else fq_neg(v.c1, v.c1);
+      st2_s(s, BN254_SLOT_P0 + k, v);
     } else {
-      st2_s(s, BN254_SLOT_B2, Fq2{Fq{{BN254_B2_C0}}, Fq{{BN254_B2_C1}}});
+      st2_s(s, BN254_SLOT_P0 + k, twist_const(k - 2));
+      if (k == 2) {
+        st2_s(s, BN254_SLOT_RZ, Fq2{one, zero});
+      } else if (k < 5) {
+        load(v.c0, p, k - 3, B, t.lane);
+        st2_s(s, BN254_SLOT_PX + k - 3, Fq2{v.c0, zero});
+      } else {
+        st2_s(s, BN254_SLOT_B2, Fq2{Fq{{BN254_B2_C0}}, Fq{{BN254_B2_C1}}});
+      }
     }
   }
   __syncwarp();
   // team_schedule.step_rounds: a doubling step runs rounds 0, 1, 2, or 0,
   // 1, 3 when an addition follows (3 also takes the addition's first
-  // products); an addition runs 4-7, or 5-7 after a doubling step.  BY is
-  // the y of the addition's base.
+  // products, against the next step's base); an addition runs 4-7, or 5-7
+  // after a doubling step; the bases' step its round
   for (int i = 0; i < n; ++i) {
     const int kind = kinds[i];
     const int other = kind == 0 ? (i + 1 < n ? kinds[i + 1] : 0) : (i > 0 ? kinds[i - 1] : 1);
-    const int by = (kind == 0 ? other : kind) == 2 ? BN254_SLOT_QN : BN254_SLOT_QY;
-    const int r0 = kind == 0 ? 0 : (other == 0 ? 5 : 4), r_end = kind == 0 ? 3 : 8;
+    const int add = kind == 0 ? other : kind;
+    const int vb = BN254_SLOT_Q1X + 2 * (add ? add - 1 : 0);
+    const bool frob = kind == BN254_MILLER_FROB_KIND;
+    const int r0 = frob ? BN254_MILLER_R_FROB : kind == 0 ? 0 : (other == 0 ? 5 : 4);
+    const int r_end = frob ? BN254_MILLER_R_FROB + 1 : kind == 0 ? 3 : 8;
 #pragma unroll 1
     for (int r = r0; r < r_end; ++r)
-      team_round<Fq2, kTeam>(kMillerRounds[r == 2 && other != 0 ? 3 : r], k, s, by,
+      team_round<Fq2, kTeam>(kMillerRounds[r == 2 && other != 0 ? 3 : r], k, s, vb,
                              t.active);
   }
   if (t.active) {
@@ -305,19 +343,6 @@ constexpr int kLinesTeam = BN254_PRE_TEAM, kLinesWarps = 1;   // 2 warps timed 4
 constexpr int kLinesLanes = 32 / kLinesTeam * kLinesWarps;
 constexpr int kLinesLaneWords = BN254_PRE_SLOTS * kTeamSlot;
 static __constant__ TeamRound kPreRounds[BN254_PRE_NROUNDS] = BN254_PRE_ROUNDS;
-// tx, ty, tx conj(tx), ty conj(ty): Fq2 j at 16 j, c0's words, then c1's
-static __constant__ uint32_t kTwist[4 * 16] = {BN254_TWIST};
-
-__device__ __forceinline__ Fq2 twist_const(int j) {
-  Fq2 w;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    w.c0.v[i] = kTwist[16 * j + i];
-    w.c1.v[i] = kTwist[16 * j + 8 + i];
-  }
-  return w;
-}
-
 // Part j (0-5) of a lane's start: R = r_in or (qx, qy, 1) (j < 3); the
 // bases from q (j 0: Q's and -Q's x, pi(Q)'s x; 1: Q's y, pi(Q)'s y; 2:
 // -Q's y; 3: pi^2(Q)'s x; 4: its y, negated), or base as kind 1's; b2 (j 5)
@@ -555,14 +580,27 @@ __global__ void k_fq12_mul(const int32_t* __restrict__ a, const int32_t* __restr
   if (t.active) store(out, 2 * t.k, B, t.lane, team_fq12_mul_coeff(P, t.k));
 }
 
-// pallas_fused.py _call_impl("fq12_cyc_sqr")
+// pallas_fused.py _call_impl("fq12_cyc_sqr"): row 9's geometry, a in
+// shared memory, each thread one of the Granger-Scott square's six Fq2
+// products (the team square that row 11 runs every digit), then one
+// output coefficient.  a and the products take 12 slots a lane, 19,200
+// bytes a block.
+constexpr int kCycSqrLaneWords = 12 * kTeamSlot;
+
 __global__ void k_fq12_cyc_sqr(const int32_t* __restrict__ a, int32_t* __restrict__ out, int B) {
-  int lane = lane_index();
-  if (lane >= B) return;
-  Fq12 x;
-  load(x, a, B, lane);
-  fq12_cyclotomic_sqr(x, x);
-  store(out, B, lane, x);
+  __shared__ __align__(16) uint32_t s_lanes[kCycLanes * kCycSqrLaneWords];
+  const TeamThread t = team_thread(kCycLanes, B);
+  uint32_t* x = s_lanes + (t.active ? t.slot : 0) * kCycSqrLaneWords;
+  uint32_t* P = x + 6 * kTeamSlot;
+  if (t.active) {
+    Fq2 v;
+    load(v, a, 2 * t.k, B, t.lane);
+    st2_s(x, t.k, v);
+  }
+  __syncwarp();
+  if (t.active) team_cyc_sqr_products(t.k, P, x);
+  __syncwarp();
+  if (t.active) store(out, 2 * t.k, B, t.lane, team_cyc_sqr_coeff(t.k, P, x));
 }
 
 // pallas_fused.py _pow_call_impl("fq12_cyc_pow"): res = a; per digit a
@@ -627,6 +665,13 @@ int bn254_fq12_frob(int power, const int32_t* a, int32_t* out, int B, cudaStream
   return static_cast<int>(cudaGetLastError());
 }
 
+// k_miller_precompute's resident blocks an SM on the current device (the
+// occupancy query; its shared memory, not its registers, sets it)
+int bn254_miller_blocks_per_sm(int* blocks) {
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, k_miller_precompute, 32 * kMillerWarps, 0));
+}
+
 int bn254_miller_precompute(const int32_t* kinds, int n, const int32_t* p, const int32_t* q,
                             int32_t* f, int32_t* r, int B, cudaStream_t stream) {
   k_miller_precompute<<<(B + kMillerLanes - 1) / kMillerLanes, 32 * kMillerWarps, 0,
@@ -667,7 +712,8 @@ int bn254_fq12_mul(const int32_t* a, const int32_t* b, int32_t* out, int B,
 }
 
 int bn254_fq12_cyc_sqr(const int32_t* a, int32_t* out, int B, cudaStream_t stream) {
-  BN254_LAUNCH(k_fq12_cyc_sqr, a, out);
+  k_fq12_cyc_sqr<<<(B + kCycLanes - 1) / kCycLanes, 32 * kCycWarps, 0, stream>>>(a, out, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int bn254_fq12_cyc_pow(const int32_t* digits, int n, const int32_t* a, int32_t* out, int B,

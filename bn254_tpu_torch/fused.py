@@ -33,6 +33,7 @@ import torch
 from . import counts
 from . import limbs as L
 from . import mont_kernels as MK
+from . import team_schedule as TS
 from ._build import check, launch, on_cuda
 from .spec import constants as C
 
@@ -436,19 +437,22 @@ def fq12_frob_plain(a, power: int):
 
 
 def miller_precompute_plain(q, p, kinds):
+    """The Miller steps of `kinds` (STEP_KINDS) with their folds: f = 1, R =
+    (qx, qy, 1), then per kind f = f^2 and a doubling step (0) or a mixed
+    addition of the kind's base (_step_bases), and f = f * line.  Returns
+    (f [12, 16, B], R [6, 16, B])."""
     counts.plain_calls["miller_precompute"] += 1
     batch = p.shape[-1]
-    qx, qy = q.view(2, 2, N, batch).unbind(0)
     px, py = p.unbind(0)
-    qy_neg = _neg(qy)
+    bases = _step_bases(q)
     f = _fq12_one(px)
-    r = _s(qx, qy, f[0, 0])                     # z = (1, 0)
+    r = _s(*bases[1], f[0, 0])                  # z = (1, 0)
     for kind in np.asarray(kinds).ravel():
         if kind == 0:
             f = _sqr12(f)
             r, c = _dbl_step(r)
         else:
-            r, c = _add_step(r, _s(qx, qy if kind == 1 else qy_neg))
+            r, c = _add_step(r, bases[kind])
         f = _fold(f, c, px, py)
     return f.reshape(12, N, batch), r.reshape(6, N, batch)
 
@@ -496,18 +500,25 @@ def _mul_by_q(x, y):
 STEP_KINDS = range(5)          # 0: doubling; additions of 1: Q, 2: -Q, 3: pi(Q), 4: -pi^2(Q)
 
 
+def _step_bases(q):
+    """The addition base [2, 2, 16, B] of each step kind (None for the
+    doubling) of an affine G2 q [4, 16, B]: Q, -Q, and the Frobenius bases
+    by _mul_by_q applied twice (mod.rs:717-721)."""
+    qx, qy = q.view(2, 2, N, q.shape[-1]).unbind(0)
+    q1 = _mul_by_q(qx, qy)
+    q2x, q2y = _mul_by_q(*q1)
+    return (None, _s(qx, qy), _s(qx, _neg(qy)), _s(*q1), _s(q2x, _neg(q2y)))
+
+
 def g2_precompute_plain(q, kinds):
     """pairing.precompute's steps (mod.rs:701-728) over stacked tensors: R
     = (qx, qy, 1), then per kind a doubling step or a mixed addition of its
-    base (_dbl_step's and _add_step's formulas), the Frobenius bases by
-    _mul_by_q applied twice.  Returns the lines [n, 6, 16, B]."""
+    base (_dbl_step's and _add_step's formulas, _step_bases).  Returns the
+    lines [n, 6, 16, B]."""
     counts.plain_calls["g2_precompute"] += 1
     batch = q.shape[-1]
-    qx, qy = q.view(2, 2, N, batch).unbind(0)
-    q1 = _mul_by_q(qx, qy)
-    q2x, q2y = _mul_by_q(*q1)
-    bases = (None, _s(qx, qy), _s(qx, _neg(qy)), _s(*q1), _s(q2x, _neg(q2y)))
-    r = _s(qx, qy, _fq12_one(qx[0])[0, 0])      # z = (1, 0)
+    bases = _step_bases(q)
+    r = _s(*bases[1], _fq12_one(q[0])[0, 0])    # z = (1, 0)
     lines = []
     for kind in np.asarray(kinds).ravel():
         r, c = _dbl_step(r) if kind == 0 else _add_step(r, bases[kind])
@@ -1036,23 +1047,35 @@ def fq12_frob(a, power: int):
     return out
 
 
-def miller_precompute(q, p, kinds):
-    """The scheduled Miller steps in one kernel: kind 0 squares f and takes a
-    G2 doubling step, kind 1/2 a mixed addition with +Q/-Q; each step then
-    folds its line (scaled by px, py) into f.
+def _step_kinds(name: str, kinds) -> np.ndarray:
+    """kinds as int32, or ValueError unless each lies in STEP_KINDS."""
+    kinds = np.asarray(kinds, dtype=np.int32).ravel()
+    if not np.isin(kinds, STEP_KINDS).all():
+        raise ValueError(f"{name}: step kinds must lie in {STEP_KINDS}, got {kinds}")
+    return kinds
 
-    q: affine G2 [4, 16, B]; p: affine G1 [2, 16, B]; kinds: [n, 1] int32.
-    Returns (f [12, 16, B], r [6, 16, B]).  Kernel: csrc/fused.cu
-    k_miller_precompute (six threads a lane over team_schedule.py's
-    rounds), replacing pallas_fused.py:_miller_call_impl."""
+
+def miller_precompute(q, p, kinds):
+    """The Miller steps in one kernel: kind 0 squares f and takes a G2
+    doubling step, kind 1-4 a mixed addition with Q, -Q, pi(Q), -pi^2(Q)
+    (STEP_KINDS); each step then folds its line (scaled by px, py) into f.
+
+    q: affine G2 [4, 16, B]; p: affine G1 [2, 16, B]; kinds: n ints, the
+    same for every lane.  Returns (f [12, 16, B], r [6, 16, B]).  Kernel:
+    csrc/fused.cu k_miller_precompute (six threads a lane over
+    team_schedule.py's rounds, the Frobenius bases made in the kernel),
+    replacing pallas_fused.py:_miller_call_impl and the JAX package's
+    Frobenius tail after it."""
+    kinds = _step_kinds("miller_precompute", kinds)
     if not on_cuda(p):
         return miller_precompute_plain(q, p, kinds)
     batch = p.shape[-1]
     check("miller_precompute", batch, p.device, (q, (4,)), (p, (2,)))
     f = torch.empty((12, N, batch), dtype=torch.int32, device=p.device)
     r = torch.empty((6, N, batch), dtype=torch.int32, device=p.device)
-    launch("miller_precompute", batch, _digits_on(kinds, p.device).data_ptr(),
-           len(kinds), p.data_ptr(), q.data_ptr(), f.data_ptr(), r.data_ptr())
+    steps = TS.device_kinds(kinds)
+    launch("miller_precompute", batch, _digits_on(steps, p.device).data_ptr(),
+           len(steps), p.data_ptr(), q.data_ptr(), f.data_ptr(), r.data_ptr())
     return f, r
 
 
@@ -1105,9 +1128,7 @@ def g2_precompute(q, kinds):
     precompute_schedule.py's rounds, the Frobenius bases made in the
     kernel), serving rows 14 and 7 as pairing_jax.precompute's scan runs
     them."""
-    kinds = np.asarray(kinds, dtype=np.int32).ravel()
-    if not np.isin(kinds, STEP_KINDS).all():
-        raise ValueError(f"g2_precompute: step kinds must lie in {STEP_KINDS}, got {kinds}")
+    kinds = _step_kinds("g2_precompute", kinds)
     if not on_cuda(q):
         return g2_precompute_plain(q, kinds)
     batch, n = q.shape[-1], len(kinds)

@@ -55,7 +55,7 @@ from . import probes as PB
 from . import team_schedule as TS
 from .convert import pack
 from .fields import FR
-from .pairing import _LINE_KINDS, _PRE_KINDS, _SQR_FLAGS
+from .pairing import _LINE_KINDS, _SQR_FLAGS
 from .spec import constants as C
 from .spec import field as SF
 from .spec import group as SG
@@ -567,9 +567,12 @@ def fq2_mul_work(m) -> float:
 
 def _w_miller(q, p, kinds):
     """The Fq2 products of the rounds the team kernel runs for these kinds
-    (team_schedule.step_rounds), each at fq2_mul_work: 88.5 Montgomery
-    products a doubling step, 68 an addition."""
-    k = np.asarray(kinds).ravel()
+    (team_schedule.step_rounds over device_kinds), each at fq2_mul_work:
+    88.5 Montgomery products a doubling step, 68 an addition, and, where a
+    Frobenius addition (kind 3 or 4) needs them, 10 for the 4 lazy
+    products of pi(Q) and -pi^2(Q).  Reads q, p and the kinds once,
+    writes f and R."""
+    k = TS.device_kinds(kinds)
     work = sum(fq2_mul_work(m) for i in range(len(k))
                for r in TS.step_rounds(k, i)[0] for m in TS.ROUNDS[r].muls)
     return int(_lanes(p) * work), _io(_lanes(p), 4 + 2 + 12 + 6) + 4 * len(k)
@@ -783,11 +786,13 @@ CASES = (
     KernelCase("fq_pow", "fq_pow", _FU_CU, f"{_PF}:1253", FU.fq_pow, FU.fq_pow_plain,
                lambda rng, b, d: (residues(rng, 1, b, d)[0], C.Q - 2), _w_fq_pow,
                batches=_FINAL_EXP_BATCHES),
-    # 16384 = 1638 blocks of 10 lanes and 4: the last block partly empty
+    # the 85 scheduled steps and the 2 Frobenius additions, as the pairing
+    # runs them; 16384 = 1638 blocks of 10 lanes and 4: the last block
+    # partly empty; 3 and 1: fewer lanes than a warp's five teams
     KernelCase("miller_precompute", "miller_precompute", _FU_CU, f"{_PF}:1395",
                FU.miller_precompute, FU.miller_precompute_plain,
-               lambda rng, b, d: (residues(rng, 4, b, d), residues(rng, 2, b, d),
-                                  _PRE_KINDS.reshape(-1, 1)), _w_miller),
+               lambda rng, b, d: (residues(rng, 4, b, d), residues(rng, 2, b, d), _LINE_KINDS),
+               _w_miller, batches=(16384, 1000, 3, 1)),
     # one step of k_g2_precompute, four threads a lane (3: fewer lanes than
     # a warp's eight teams)
     KernelCase("g2_add_step", "g2_add_step", _FU_CU, f"{_PF}:1151", FU.g2_add_step,
@@ -809,7 +814,8 @@ CASES = (
                batches=(16384, 1000, 3)),      # 3: fewer lanes than a warp's 5 teams
     KernelCase("fq12_cyc_sqr", "fq12_cyc_sqr", _FU_CU, f"{_PF}:1027", FU.fq12_cyc_sqr,
                FU.fq12_cyc_sqr_plain, _fq((12,)),
-               lambda a: (_per_lane(_CYC_SQR_FQ2 * FQ2_MUL_LAZY_PRODUCTS, a), _io(_lanes(a), 24))),
+               lambda a: (_per_lane(_CYC_SQR_FQ2 * FQ2_MUL_LAZY_PRODUCTS, a), _io(_lanes(a), 24)),
+               batches=(16384, 1000, 3)),      # 3: fewer lanes than a warp's 5 teams
     KernelCase("fq12_cyc_pow", "fq12_cyc_pow[naf]", _FU_CU, f"{_PF}:1267", FU.fq12_cyc_pow,
                FU.fq12_cyc_pow_plain,
                lambda rng, b, d: (residues(rng, 12, b, d), FU.NAF_Z), _w_cyc_pow),

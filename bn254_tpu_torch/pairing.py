@@ -2,12 +2,12 @@
 bn254_tpu/pairing_jax.py.
 
 The main path (``pairing``, ``pairing_batch``) is the JAX package's fused
-TPU path, kernel for kernel: to_affine (one to_affine kernel a group: a
-Fermat inversion a block of lanes, shared by prefix and suffix products),
-one whole-Miller kernel for the 85 scheduled steps, the 2
-Frobenius addition steps and their line folds on their own kernels, the
-infinity select, the batch-wide Fq12 product (pairing_batch only) and the
-final exponentiation.
+TPU path: to_affine (one to_affine kernel a group: a Fermat inversion a
+block of lanes, shared by prefix and suffix products), one whole-Miller
+kernel for the 85 scheduled steps and the 2 Frobenius addition steps
+with their line folds (the bases made in the kernel), the infinity
+select, the batch-wide Fq12 product (pairing_batch only) and the final
+exponentiation.
 
 ``precompute`` + ``miller_loop`` are the prepared-G2 entry (87 line
 coefficients computed once per G2 point, then 87 folds), the JAX
@@ -51,8 +51,9 @@ _SQR_FLAGS = np.array(
     [k == 0 for k in _PRE_KINDS] + [False, False], dtype=np.bool_)
 assert _SQR_FLAGS.sum() == 64 and len(_SQR_FLAGS) == 87
 
-# precompute's 87 steps: the 85 scheduled, then the additions of the 2
-# Frobenius bases (kinds 3 = pi(Q), 4 = -pi^2(Q): fused.STEP_KINDS).
+# The 87 steps of precompute and of the Miller kernel: the 85 scheduled,
+# then the additions of the 2 Frobenius bases (kinds 3 = pi(Q), 4 =
+# -pi^2(Q): fused.STEP_KINDS).
 _LINE_KINDS = np.concatenate([_PRE_KINDS, [3, 4]]).astype(np.int32)
 
 
@@ -118,7 +119,8 @@ def _mul_by_q(pt):
 
 
 def _frobenius_points(qa):
-    """The 2 Frobenius addition bases: Q1 = pi(Q), Q2 = -pi^2(Q)."""
+    """The 2 Frobenius addition bases: Q1 = pi(Q), Q2 = -pi^2(Q), by the
+    tower ops (the Miller kernel makes its own)."""
     q1 = _mul_by_q(qa)
     q2 = _mul_by_q(q1)
     return q1, (q2[0], T.fq2_neg(q2[1]))
@@ -153,14 +155,11 @@ def miller_loop(coeffs, p_affine):
 
 
 def _miller_f_fused(qa, pa):
-    """One kernel for the 85 scheduled steps (precompute interleaved with
-    the fold), then the 2 Frobenius addition steps + folds (mod.rs:717-721,
-    :630-638) on the step kernels.  Equal to precompute() + miller_loop()."""
-    px, py = pa
-    f, r = FU.miller_precompute(pack(qa), pack(pa), _PRE_KINDS.reshape(-1, 1))
-    for base in _frobenius_points(qa):
-        r, c = FU.g2_add_step(r, pack(base))
-        f = FU.fq12_fold_line(f, c, px, py)
+    """One Miller kernel launch for the 85 scheduled steps, then the 2
+    Frobenius addition steps (mod.rs:717-721, :630-638), each line folded
+    into f, the Frobenius bases made in the kernel.  Equal to precompute()
+    + miller_loop()."""
+    f, _ = FU.miller_precompute(pack(qa), pack(pa), _LINE_KINDS)
     return unpack_fq12(f)
 
 

@@ -57,7 +57,7 @@ NAMES = {**SLOT, **VIRTUAL}
 
 def base_slot(kind: int) -> int:
     """vb of an addition of kind 1-4: its base's x."""
-    return SLOT["Q1X"] + 2 * (kind - 1)
+    return TS.base_slot(kind, SLOT)
 
 
 def _renamed(rnd: Round, names: dict) -> Round:
@@ -98,7 +98,7 @@ DBL_R3A = Round(DBL_R3.muls + (Mul("T2", A("RZ"), A("BX")), Mul("T3", A("RZ"), A
 # slots that are free there (the doubling step's P12, T2, T3 and g's P16),
 # its base virtual, without the px, py scalings; its line's ell_vw = d
 # and ell_vv = -e as combinations of their own.
-_B = {"QX": "BX", "P0": "T2", "P1": "T3", "P2": "P12", "P3": "P16"}
+_B = {"P0": "T2", "P1": "T3", "P2": "P12", "P3": "P16"}
 ADD_A1 = _renamed(Round(TS.ADD_A1_MULS, TS.ADD_A1_LINS), _B)
 ADD_A2 = _renamed(Round(tuple(m for m in TS.ADD_A2_MULS if m.dst not in ("L2", "L4")),
                         TS.ADD_A2_LINS + (Comb("EW", A("T0")), Comb("EV", A("-T1")))),

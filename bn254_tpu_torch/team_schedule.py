@@ -1,8 +1,9 @@
 """The Miller kernel's team schedule (csrc/fused.cu k_miller_precompute).
 
 Six threads of one warp share a batch lane.  The lane's state lives in
-shared memory as Fq2 slots (``SLOT``): f, the point R, the base Q and -Q's
-y, (px, 0) and (py, 0), the twist coefficient b2, the line, a product
+shared memory as Fq2 slots (``SLOT``): f, the point R, the four addition
+bases (Q, -Q, pi(Q), -pi^2(Q): a round of their own makes the last two),
+(px, 0) and (py, 0), the twist coefficient b2, the line, a product
 scratch and a few temporaries.  A Miller step is a short list of rounds;
 in a round each thread first computes up to three Fq2 products (tasks k,
 k + 6, k + 12 of the round's ``muls``), then, after a ``__syncwarp``, up to
@@ -14,9 +15,11 @@ runs six formulas one after another.
 A doubling step (kind 0) is three rounds: f's square with the doubling
 step's first products; the products that need b2 * 3z^2 and the line's px,
 py scalings; then the 024 fold of the line into f with the last products
-of the step.  A mixed addition (kinds 1, 2: +Q, -Q) is four rounds, the
-fold in the third; after a doubling step it is three, its first round's
-work done in the doubling step's last (``step_rounds``), so that an
+of the step.  A mixed addition (kinds 1-4: +Q, -Q, pi(Q), -pi^2(Q)) is
+four rounds, the fold in the third, its base virtual in x and y (``BX``,
+``BY``: the kernel points them at kind k's pair of slots, ``base_slot``);
+after a doubling step it is three, its first round's work done in the
+doubling step's last (``step_rounds``), so that an
 addition takes the five product passes its 28 products need and a
 doubling step the seven its 37 need.  Products of 1/2 are halvings
 (``post = HALF``), exact in the field, so r and f are the one-thread
@@ -39,12 +42,15 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
+
+BASES = 4                                       # kinds 1-4: +Q, -Q, pi(Q), -pi^2(Q)
 # Fq2 slots of a lane: name -> index.
 SLOT = {name: i for i, name in enumerate(
     ["F0", "F1", "F2", "F3", "F4", "F5",        # f = (c0.c0, c0.c1, c0.c2, c1.c0, c1.c1, c1.c2)
-     "RX", "RY", "RZ",                          # R, Jacobian
-     "QX", "QY", "QN",                          # Q affine, -Q's y
-     "PX", "PY",                                # (px, 0), (py, 0)
+     "RX", "RY", "RZ"]                          # R, Jacobian
+    + [f"Q{k}{c}" for k in range(1, BASES + 1) for c in "XY"]   # the bases, affine
+    + ["PX", "PY",                              # (px, 0), (py, 0)
      "B2",                                      # the twist's b
      "L0", "L2", "L4"]                          # the line: ell_0, ell_vv px, ell_vw py
     + [f"P{i}" for i in range(18)]              # product scratch
@@ -52,11 +58,12 @@ SLOT = {name: i for i, name in enumerate(
 N_SLOTS = len(SLOT)
 TEAM = 6
 # A term's slot at VIRT + j or above is virtual: the kernel reads slot
-# vb + j, vb its argument for the lane (here the base's y BY, QY for kind 1
-# and QN (-Q's y) for kind 2; the GLV ladder's table point,
+# vb + j, vb its argument for the lane (here the addition's base, BX and
+# BY, vb = base_slot(kind); the GLV ladder's table point,
 # ladder_schedule.py).  Real slots stay below VIRT.
 VIRT = 56
-NAMES = {**SLOT, "BY": VIRT}
+VIRTUAL = {"BX": VIRT, "BY": VIRT + 1}
+NAMES = {**SLOT, **VIRTUAL}
 NONE = 0xFF
 TERM_BITS, MAX_TERMS = 6, 10                    # a slot a term, 10 in 64 bits
 HALF, DOUBLE = 1, 2                             # Lin.post
@@ -181,18 +188,18 @@ DBL_R3_MULS = (Mul("P13", A("P15"), A("P15")),             # e^2
 DBL_R3_LINS = (Comb("RY", A("P14", "-P13", "-P13", "-P13")),)
 
 # ---------------------------------------------------------------------------
-# Mixed addition step (mod.rs:731-752, fused._add_step) against (QX, BY):
+# Mixed addition step (mod.rs:731-752, fused._add_step) against (BX, BY):
 # z bx, z by | d = x - z bx, e = y - z by | d^2, e^2, e bx, d by, ell_vv px
 # = -e px, ell_vw py = d py | ell_0 = xi(e bx - d by) | h = d f, i = x f,
 # z g | j = z g + h - 2i | x' = d j, e (i - j), h y, z' = z h | y' = e (i -
 # j) - h y.
 # ---------------------------------------------------------------------------
 
-ADD_A1_MULS = (Mul("P0", A("RZ"), A("QX")), Mul("P1", A("RZ"), A("BY")))
+ADD_A1_MULS = (Mul("P0", A("RZ"), A("BX")), Mul("P1", A("RZ"), A("BY")))
 ADD_A1_LINS = (Comb("T0", A("RX", "-P0")),                  # d
                Comb("T1", A("RY", "-P1")))                  # e
 ADD_A2_MULS = (Mul("P13", A("T0"), A("T0")), Mul("P14", A("T1"), A("T1")),
-               Mul("P2", A("T1"), A("QX")), Mul("P3", A("T0"), A("BY")),
+               Mul("P2", A("T1"), A("BX")), Mul("P3", A("T0"), A("BY")),
                Mul("L2", A("-T1"), A("PX")), Mul("L4", A("T0"), A("PY")))
 ADD_A2_LINS = (Comb("L0", Lin(b=("P2", "-P3"))),)
 ADD_A3_MULS = (Mul("P15", A("T0"), A("P13")),               # h = d f
@@ -207,9 +214,22 @@ ADD_A4_LINS = (Comb("RY", A("P0", "-P1")),)
 # products (z bx, z by) into its last round, and the addition's d and e
 # into that round's combinations (e from y' = g^2 - 3 e^2 directly, since
 # y' is written beside it): the addition then starts at its second round.
-DBL_R3A_MULS = (Mul("T2", A("RZ"), A("QX")), Mul("T3", A("RZ"), A("BY")))
+DBL_R3A_MULS = (Mul("T2", A("RZ"), A("BX")), Mul("T3", A("RZ"), A("BY")))
 DBL_R3A_LINS = (Comb("T0", A("RX", "-T2")),                              # d
                 Comb("T1", A("P14", "-P13", "-P13", "-P13", "-T3")))     # e
+
+# The Frobenius bases (mod.rs:693-699, fused._mul_by_q applied twice),
+# where a step adds pi(Q) or -pi^2(Q): the kernel's start puts conj(qx),
+# conj(qy) and the twist factors tx, ty, tx conj(tx), ty conj(ty)
+# (_build.twist_consts) into P0-P5, free until the first step; this round
+# makes pi(Q) = (tx conj(qx), ty conj(qy)) and -pi^2(Q) = (tx conj(tx) qx,
+# ty conj(ty) (-qy)), one product a thread.  It runs as a step of kind
+# FROB_KIND, first (device_kinds), through the steps' own round code: a
+# product spelled anywhere else in the kernel, even where never reached,
+# slowed every step (PERF.md).
+FROB_MULS = (Mul("Q3X", A("P0"), A("P2")), Mul("Q3Y", A("P1"), A("P3")),
+             Mul("Q4X", A("Q1X"), A("P4")), Mul("Q4Y", A("Q2Y"), A("P5")))
+FROB_KIND = 5
 
 ROUNDS = (Round(SQR_MULS + DBL_R1_MULS, SQR_LINS + DBL_R1_LINS),                  # 0
           Round(DBL_R2_MULS, DBL_R2_LINS),                                        # 1
@@ -219,20 +239,37 @@ ROUNDS = (Round(SQR_MULS + DBL_R1_MULS, SQR_LINS + DBL_R1_LINS),                
           Round(ADD_A1_MULS, ADD_A1_LINS),                                        # 4
           Round(ADD_A2_MULS, ADD_A2_LINS),                                        # 5
           Round(FOLD_MULS + ADD_A3_MULS, FOLD_LINS + ADD_A3_LINS),                # 6
-          Round(ADD_A4_MULS, ADD_A4_LINS))                                        # 7
+          Round(ADD_A4_MULS, ADD_A4_LINS),                                        # 7
+          Round(FROB_MULS, ()))                                                   # 8
 DBL, DBL_THEN_ADD, ADD, ADD_AFTER_DBL = (0, 1, 2), (0, 1, 3), (4, 5, 6, 7), (5, 6, 7)
+FROB = (8,)
+
+
+def device_kinds(kinds):
+    """The kinds k_miller_precompute runs: FROB_KIND first where a step
+    adds a Frobenius base (kind 3 or 4), then `kinds`."""
+    kinds = np.asarray(kinds, dtype=np.int32).ravel()
+    return np.concatenate([[FROB_KIND], kinds]).astype(np.int32) if (kinds >= 3).any() else kinds
 
 
 def step_rounds(kinds, i: int) -> tuple:
-    """(the rounds of step i of the schedule `kinds`, the kind whose base y
-    BY stands for), as k_miller_precompute picks them: a doubling step ends
+    """(the rounds of step i of the schedule `kinds`, the kind whose base
+    BX, BY stand for), as k_miller_precompute picks them: a doubling step ends
     with round 3 when an addition follows, an addition after a doubling
-    step starts at its second round."""
+    step starts at its second round; FROB_KIND runs the bases' round."""
     kind = int(kinds[i])
+    if kind == FROB_KIND:
+        return FROB, 0
     if kind == 0:
         nxt = int(kinds[i + 1]) if i + 1 < len(kinds) else 0
         return (DBL_THEN_ADD if nxt else DBL), nxt
     return (ADD_AFTER_DBL if i and int(kinds[i - 1]) == 0 else ADD), kind
+
+
+def base_slot(kind: int, slots: dict = SLOT) -> int:
+    """vb of an addition of kind 1-4: the slot of its base's x, Q1X + 2
+    (kind - 1); its y is the next."""
+    return slots["Q1X"] + 2 * (kind - 1)
 
 
 def slot(term: str, slots: dict) -> tuple:
@@ -315,8 +352,10 @@ def header() -> str:
         f"#define BN254_TEAM_SLOTS {N_SLOTS}",
         f"#define BN254_TEAM_VIRT {VIRT}",
         *(f"#define BN254_SLOT_{name} {i}" for name, i in SLOT.items()
-          if not (name[0] in "PT" and name[1:].isdigit())),
+          if name == "P0" or not (name[0] in "PT" and name[1:].isdigit())),
         f"#define BN254_MILLER_NROUNDS {len(ROUNDS)}",
+        f"#define BN254_MILLER_FROB_KIND {FROB_KIND}",
+        f"#define BN254_MILLER_R_FROB {FROB[0]}",
         f"#define BN254_MILLER_ROUNDS {rounds_initializer(ROUNDS, TEAM, NAMES, N_SLOTS)}",
         "",
     ])

@@ -12,17 +12,18 @@ Phases (any failure raises, so the exit code is not 0):
    print the build's seconds and ptxas's registers, stack and shared
    memory of the MSM kernels, of the group law's five (one add, one
    double, the MSM's Horner + lane fold, the double-and-add and the GLV
-   ladder, a team of four threads a lane), of the four kernels that run
+   ladder, a team of four threads a lane), of the five kernels that run
    a team of six threads a lane (csrc/fq12_team.cuh): the cyclotomic
-   ladder (row 11), the Miller kernel (row 6), the Fq12 product (row 9)
-   and the prepared Miller loop (row 8l, whose one-step launches are rows
-   8 and 13), of the prepared-G2 lines (row 14l, a team of four, whose
-   one-step launches are rows 14 and 7), and of the Fermat chain (row 5),
-   the Fq2 square root, the final exponentiation's Fq12 inverse and
-   Frobenius maps and the affine conversion (one Fermat chain a block,
-   which serves rows 1-5); every
+   ladder (row 11) and square (row 10), the Miller kernel (row 6), the
+   Fq12 product (row 9) and the prepared Miller loop (row 8l, whose
+   one-step launches are rows 8 and 13), of the prepared-G2 lines (row
+   14l, a team of four, whose one-step launches are rows 14 and 7), and
+   of the Fermat chain (row 5), the Fq2 square root, the final
+   exponentiation's Fq12 inverse and Frobenius maps and the affine
+   conversion (one Fermat chain a block, which serves rows 1-5); every
    other kernel runs one thread a lane (every entry's numbers stay in
-   bn254_tpu_torch/_build/build.log).
+   bn254_tpu_torch/_build/build.log).  Then the Miller kernel's resident
+   blocks an SM (the occupancy query).
 2. Kernel vs plain version: each kernel on CUDA tensors made from a seed
    (bn254_tpu_torch/kernel_cases.py: field residues with 0, 1 and q - 1
    in the first lanes; real G1/G2 points with the group law's edge lanes;
@@ -40,12 +41,13 @@ Phases (any failure raises, so the exit code is not 0):
    every 128, on the last lane and on a whole block, and G2's z with one
    coordinate 0; the probes at their
    scripts' batches, 32768 and 8192) at B = 16384 and at a ragged B =
-   1000 (n = 5000 for the MSM kernels; the Fq12 product, the prepared
-   Miller loop and its one-step forms, the fold and the Fq12 square, the
-   prepared-G2 lines and theirs, the doubling and addition steps, also
-   at B = 3, fewer lanes than a warp's five teams; the Fermat chain, the Fq12
-   inverse, each Frobenius map and the double-and-add also at B = 3 and
-   at pairing_batch's B = 1, the Fq2 square root also at B = 3, the
+   1000 (n = 5000 for the MSM kernels; the Fq12 product, the cyclotomic
+   square, the prepared Miller loop and its one-step forms, the fold and
+   the Fq12 square, the prepared-G2 lines and theirs, the doubling and
+   addition steps, also at B = 3, fewer lanes than a warp's five teams;
+   the Miller kernel over the pairing's 87 kinds, the Fermat chain, the
+   Fq12 inverse, each Frobenius map and the double-and-add also at B = 3
+   and at pairing_batch's B = 1, the Fq2 square root also at B = 3, the
    affine conversion at 16384, 1000 and 1, the
    double-and-add over 64 bits at 16384
    lanes and r's 254 at the others; the Horner + lane fold at the MSM's
@@ -67,16 +69,23 @@ Phases (any failure raises, so the exit code is not 0):
    e(aP, bQ) * e(-ab P, Q) = 1.  Then every kernel must have launched
    (the final exponentiation's Fq12 inverse and Frobenius maps among
    them), to_affine once a group a call and none of the one-op field
-   kernels it replaced (mont_mul, mont_sqr, fq2_sqr, fq_pow), and no
-   plain version may have run.
+   kernels it replaced (mont_mul, mont_sqr, fq2_sqr, fq_pow), the Miller
+   kernel once a call and none of the one-op kernels its Frobenius tail
+   replaced (fq2_mul, g2_add_step, fq12_fold_line), and no plain version
+   may have run.
 4. Timing: pairings/s of ``pairing`` at B = 16384 and the time of each of
    its layers on its own: to_affine, Miller loop (without the infinity
-   select) and final exponentiation, split into its easy part (the
-   inverse, the conjugation, a Frobenius map, two products) and its hard
-   part (CUDA events, mean of 3 after a warm-up).  Then one pairing call
-   under torch.profiler: its count of CUDA kernels (and of copies) and
-   the device-busy share, the union of their device intervals over the
-   call's span.
+   select; one Miller launch) and final exponentiation, split into its
+   easy part (the inverse, the conjugation, a Frobenius map, two
+   products) and its hard part (CUDA events, mean of 3 after a
+   warm-up).  The one-launch Miller layer must equal, on all 16384
+   lanes, the route it replaced (``frobenius_tail_route``: the Miller
+   kernel over the 85 scheduled kinds, the Frobenius bases by tower ops,
+   two one-step addition and fold launches), whose additions and folds
+   must equal their plain versions on the same inputs; both routes are
+   timed.  Then one pairing call under torch.profiler: its count of CUDA
+   kernels (and of copies) and the device-busy share, the union of their
+   device intervals over the call's span.
 5. MSM path, with the counters reset first: ``msm`` over G1 at n = 2^20
    and over G2 at n = 2^16, points P_i = (i + 1) G built on the card by
    doubling the batch with point_add, random scalars from a numpy seed,
@@ -121,10 +130,9 @@ Phases (any failure raises, so the exit code is not 0):
    spec's, and each call timed; ``precompute`` is one g2_precompute
    launch and the loop one miller_loop launch (no g2_dbl_step,
    g2_add_step, fq2_mul, fq12_sqr or fq12_fold_line).  Then the
-   g2_precompute kernel against its plain version on the pairs' Q, the
-   miller_loop kernel on the path's own lines and the fold (row 8) on
-   the pairing path's own Frobenius lines, all at tolerance 0, and the
-   two path kernels timed beside their bounds.
+   g2_precompute kernel against its plain version on the pairs' Q and
+   the miller_loop kernel on the path's own lines, both at tolerance 0,
+   and timed beside their bounds.
 9. Throughput probes, with the counters reset first: ``probe_mont``
    (B = 32768, chain 64) and ``probe_tower`` (B = 8192, chain 32, the
    seven ops of bench_tower.py).  Every chain, and every op's one call
@@ -152,11 +160,13 @@ Phases (any failure raises, so the exit code is not 0):
    16384 lanes (tolerance 0) and timed there beside its bound.
 
 Each main path must launch every kernel it uses and no plain version.
+The "all phases" line gives the run's seconds and each phase's.
 The line before the last is the kernels' JSON record (launches summed
 over the six paths); the last line is {"ok": true, "device": {...}}.
 Needs one CUDA card; fails without one.
 """
 
+import ctypes
 import json
 import os
 import random
@@ -175,6 +185,7 @@ TIMED = (ROW_12, "msm_accumulate[g1,skew]", "fq12_frob[conj]", "point_add[g2]",
          "point_double[g2]", "msm_combine[g2]", "point_mul[g2]", "glv_ladder[g2]",
          "to_affine[g2]")
 PTXAS = ("k_msm_bucket_sort", "k_msm_accumulate", "k_msm_bucket_reduce", "k_fq12_cyc_pow",
+         "k_fq12_cyc_sqr",
          "k_miller_precompute", "k_fq12_mul", "k_fq_pow", "k_fq12_inv", "k_fq12_frob",
          "k_point_add", "k_point_double", "k_msm_combine", "k_point_mul", "k_glv_ladder",
          "k_fq2_sqrt", "k_miller_loop", "k_g2_precompute", "k_to_affine")
@@ -390,8 +401,10 @@ def phase_main_path(dev, ps, qs):
 
     require(launches["to_affine"] == 2 * 4, f"{launches['to_affine']} to_affine launches for "
                                             f"4 pairing calls (one a group a call)")
+    require(launches["miller_precompute"] == 4, f"{launches['miller_precompute']} Miller launches "
+                                                f"for 4 pairing calls (one a call)")
     return check_launches("pairing", counts.PAIRING_PATH, launches, plain,
-                          absent=counts.TO_AFFINE_ONE_OPS)
+                          absent=counts.TO_AFFINE_ONE_OPS + counts.FROBENIUS_TAIL_ONE_OPS)
 
 
 def device_busy(fn):
@@ -423,11 +436,40 @@ def device_busy(fn):
     return len(device) - copies, copies, busy / span
 
 
-def phase_timing(dev, ps, qs, card):
+def frobenius_tail_route(qa, pa, checks=None):
+    """The Miller layer as it ran before the Frobenius tail moved into the
+    Miller kernel: the kernel over the 85 scheduled kinds, the bases Q1 =
+    pi(Q), Q2 = -pi^2(Q) by tower ops (pairing._frobenius_points), then a
+    one-step g2_add_step and fq12_fold_line launch for each.  With
+    `checks`, each addition and fold is appended there as (name, kernel's
+    result, plain version's result on the same inputs).  Returns f
+    [12, 16, B]."""
+    from bn254_tpu_torch import fused as FU
+    from bn254_tpu_torch import pairing as P
+    from bn254_tpu_torch.convert import pack
+
+    px, py = pa
+    f, r = FU.miller_precompute(pack(qa), pack(pa), P._PRE_KINDS)
+    for base in map(pack, P._frobenius_points(qa)):
+        step = FU.g2_add_step(r, base)
+        if checks is not None:
+            checks.append(("g2_add_step", step, FU.g2_add_step_plain(r, base)))
+        r, line = step
+        got = FU.fq12_fold_line(f, line, px, py)
+        if checks is not None:
+            checks.append(("fq12_fold_line", got, FU.fq12_fold_line_plain(f, line, px, py)))
+        f = got
+    return f
+
+
+def phase_timing(dev, ps, qs, card, records):
     """pairings/s at N_MAIN, the split into the path's three layers and of
-    the final exponentiation into its easy and hard parts, and one call's
-    device-busy share."""
+    the final exponentiation into its easy and hard parts, the one-launch
+    Miller layer against the route it replaced (equal on every lane, and
+    timed), and one call's device-busy share."""
+    from bn254_tpu_torch import fused as FU
     from bn254_tpu_torch import groups as G
+    from bn254_tpu_torch import kernel_cases as KC
     from bn254_tpu_torch import pairing as P
     from bn254_tpu_torch import tower as T
     from bn254_tpu_torch.convert import pack
@@ -447,6 +489,21 @@ def phase_timing(dev, ps, qs, card):
     print(f"pairing B={N_MAIN}: {total_ms:.2f} ms = {N_MAIN / total_ms * 1e3:.0f} pairings/s; "
           f"to_affine {split[0]:.2f} ms, Miller {split[1]:.2f} ms, final exp {split[2]:.2f} ms "
           f"(easy part {split[3]:.2f} ms, hard part {split[4]:.2f} ms) [{card}]", flush=True)
+
+    checks = []
+    require(torch.equal(x, frobenius_tail_route(qa, pa, checks)),
+            "the one-launch Miller layer differs from the 85-kind kernel + Frobenius tail route")
+    for name, got, want in checks:
+        err = KC.max_abs_err(got, want)
+        require(err == 0, f"{name} on the Frobenius tail route differs from its plain version "
+                          f"by {err}")
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+    old_ms = cuda_ms(lambda: frobenius_tail_route(qa, pa), 3)
+    sched_ms = cuda_ms(lambda: FU.miller_precompute(pack(qa), pack(pa), P._PRE_KINDS), 3)
+    print(f"Miller B={N_MAIN}: one launch over 87 kinds = the 85-kind kernel + Frobenius bases "
+          f"+ 2 one-step additions and folds on all lanes (those steps = their plain versions, "
+          f"max_abs_err 0); one launch {split[1]:.2f} ms, old route {old_ms:.2f} ms (its "
+          f"85-kind launch {sched_ms:.2f} ms) [{card}]", flush=True)
     busy = device_busy(lambda: P.pairing(g1, g2))
     print(f"pairing B={N_MAIN} under torch.profiler: {busy[0]} CUDA kernels and {busy[1]} "
           f"copies or sets a call, device busy {100 * busy[2]:.1f} % of the call's span "
@@ -788,8 +845,7 @@ def phase_prepared_miller(dev, ps, qs, card, records):
     route's (rows 14 and 7 chained) and 4 lanes' to the spec's, and the
     loop's result to the fused Miller loop's, limb for limb.  Then the
     line and loop kernels against their plain versions on the path's own
-    inputs and the fold (row 8) on the pairing path's own Frobenius lines,
-    all at tolerance 0, and both kernels timed beside their bounds.
+    inputs, at tolerance 0, and both kernels timed beside their bounds.
     Returns its launches."""
     from bn254_tpu_torch import convert, counts
     from bn254_tpu_torch import fused as FU
@@ -832,19 +888,12 @@ def phase_prepared_miller(dev, ps, qs, card, records):
           f"{times[0]:.2f} ms (one-op route {times[3]:.2f} ms), miller_loop {times[1]:.2f} ms "
           f"(fused Miller loop {times[2]:.2f} ms) [{card}]", flush=True)
 
-    # the kernels on the paths' own inputs: the lines on the pairs' Q, the
-    # loop on precompute's lines, the fold on the pairing's two Frobenius
-    # lines after the Miller kernel
+    # the kernels on the path's own inputs: the lines on the pairs' Q, the
+    # loop on precompute's lines
     (px, py), line_args = pa, (pack(qa), P._LINE_KINDS)
     args = (c, px, py, P._SQR_FLAGS)
     checks = [("g2_precompute", c, FU.g2_precompute_plain(*line_args)),
               ("miller_loop", FU.miller_loop(*args), FU.miller_loop_plain(*args))]
-    f, r = FU.miller_precompute(pack(qa), pack(pa), P._PRE_KINDS.reshape(-1, 1))
-    for base in P._frobenius_points(qa):
-        r, line = FU.g2_add_step(r, pack(base))
-        got = FU.fq12_fold_line(f, line, px, py)
-        checks.append(("fq12_fold_line", got, FU.fq12_fold_line_plain(f, line, px, py)))
-        f = got
     for name, got, want in checks:
         err = KC.max_abs_err(got, want)
         require(err == 0, f"{name} on the prepared-Miller path differs from its plain "
@@ -857,9 +906,8 @@ def phase_prepared_miller(dev, ps, qs, card, records):
         bound, by = KC.bound_ms(*work)
         timed.append(f"{name} kernel {cuda_ms(fn, 10):.4f} ms (bound {bound:.4f} ms, {by})")
     print(f"prepared Miller B={N_MAIN}: g2_precompute kernel = plain version on the pairs' Q, "
-          f"miller_loop kernel = plain version on precompute's lines, fold = plain version on "
-          f"the pairing's 2 Frobenius lines (max_abs_err 0); {'; '.join(timed)} [{card}]",
-          flush=True)
+          f"miller_loop kernel = plain version on precompute's lines (max_abs_err 0); "
+          f"{'; '.join(timed)} [{card}]", flush=True)
     return check_launches("prepared-Miller", counts.PREPARED_MILLER_PATH, launches, plain,
                           absent=("g2_dbl_step", "g2_add_step", "fq2_mul", "fq12_sqr",
                                   "fq12_fold_line"))
@@ -1113,22 +1161,40 @@ def main():
           flush=True)
     for line in ptxas_lines((_build.BUILD_DIR / "build.log").read_text(), PTXAS):
         print(line, flush=True)
+    blocks = ctypes.c_int(0)
+    require(_build.library().bn254_miller_blocks_per_sm(ctypes.byref(blocks)) == 0,
+            "the occupancy query of k_miller_precompute failed")
+    print(f"k_miller_precompute: {blocks.value} blocks of 2 warps an SM (occupancy query)",
+          flush=True)
 
+    laps = [("build", time.perf_counter())]      # each phase's end, for the seconds line
+    lap = lambda name: laps.append((name, time.perf_counter()))
     records = phase_kernels(dev)
+    lap("kernels")
     ps, qs = spec_pairs(N_MAIN)
     launches = phase_main_path(dev, ps, qs)
-    phase_timing(dev, ps, qs, card)
+    lap("pairing")
+    phase_timing(dev, ps, qs, card, records)
+    lap("pairing timing")
     msm_launches, inputs = phase_msm(dev)
+    lap("MSM")
     for name, rec in phase_msm_timing(inputs, card)[1].items():          # G1 2^20
         records[name].update(rec)
     del inputs
+    lap("MSM timing")
     glv_launches, inputs = phase_glv(dev)
     phase_glv_timing(inputs, card, records)
     del inputs
+    lap("GLV")
     miller_launches = phase_prepared_miller(dev, ps, qs, card, records)
+    lap("prepared Miller")
     probe_launches = phase_probes(card, records)
+    lap("probes")
     codec_launches = phase_codec(dev, card, records)
-    print(f"all phases: {time.perf_counter() - t0:.0f} s from the build's start", flush=True)
+    lap("codec")
+    print(f"all phases: {time.perf_counter() - t0:.0f} s from the build's start ("
+          + ", ".join(f"{name} {t - laps[i][1]:.0f} s" for i, (name, t) in enumerate(laps[1:]))
+          + ")", flush=True)
 
     paths = (launches, msm_launches, glv_launches, miller_launches, probe_launches,
              codec_launches)

@@ -172,11 +172,7 @@ def test_prepared_miller_reaches_its_kernels_with_valid_arguments(monkeypatch):
     them) with its entry's arguments and one miller_loop launch (its 64
     squares and 87 folds), no one-op g2_dbl_step, g2_add_step, fq2_mul,
     fq12_sqr or fq12_fold_line launch, and no plain version runs."""
-    launch = _stub_launch
-
-    for mod in (MK, FU):
-        monkeypatch.setattr(mod, "on_cuda", lambda t: True)
-        monkeypatch.setattr(mod, "launch", launch)
+    _stub_kernels(monkeypatch)
     rng = random.Random(SEED + 10)
     pa_np, qa_np = _affine_pairs([(rng.randrange(1, R), rng.randrange(1, R)) for _ in range(3)])
     pa, qa = convert.from_numpy((pa_np, qa_np), "cpu")
@@ -215,13 +211,20 @@ def _jax_miller_case():
 
 
 def test_miller_f_fused_vs_jax_miller_loop():
-    """The plain Miller kernel + 2 Frobenius steps and folds (rows 6-8)
-    against the JAX package's CPU Miller loop (precompute interleaved with
-    the fold, tape.py) and the port's prepared-G2 entry, precompute +
-    miller_loop (rows 7, 8, 13, 14)."""
+    """The one-launch Miller layer (row 6's plain version, one call over
+    the 87 kinds: the 85 scheduled steps, then the 2 Frobenius additions
+    and folds, the bases made by fused._step_bases) against the JAX
+    package's _miller_f_fused (pairing_jax.py:221-237) as its CPU tape
+    spells it (tape._tape_miller_fused: the 85 steps interleaved with the
+    fold, then _mul_by_q twice and the 2 Frobenius additions and folds),
+    and against the port's prepared-G2 entry, precompute + miller_loop
+    (rows 7, 8, 13, 14)."""
     pa_np, qa_np, want = _jax_miller_case()
     pa, qa = convert.from_numpy((pa_np, qa_np), "cpu")
+    counts.reset()
     got = P._miller_f_fused(qa, pa)
+    assert [counts.plain_calls[k] for k in ("miller_precompute", *counts.FROBENIUS_TAIL_ONE_OPS)] \
+        == [1, 0, 0, 0]
     assert_same(got, want)
     assert_same(got, convert.to_numpy(P.miller_loop(P.precompute(qa), pa)))
 
@@ -308,19 +311,25 @@ def test_all_infinity_batch_is_identity():
     assert T.fq12_decode(out)[0] == SF.FQ12_ONE
 
 
+def _stub_kernels(monkeypatch):
+    """Every wrapper takes its kernel branch on CPU tensors, with the launch
+    stubbed out (_stub_launch)."""
+    for mod in (MK, FU):
+        monkeypatch.setattr(mod, "on_cuda", lambda t: True)
+        monkeypatch.setattr(mod, "launch", _stub_launch)
+
+
 def test_main_path_reaches_every_kernel_with_valid_arguments(monkeypatch):
     """The main path with the wrappers taking their kernel branch on CPU
     tensors and the launch stubbed out: every wrapper's device, dtype,
-    shape and contiguity check passes, each of the path's ten kernels is
+    shape and contiguity check passes, each of the path's seven kernels is
     reached with its entry's arguments, and no plain version runs (what
     chip_smoke.py asserts on the card): to_affine once a group a call, and
-    none of the one-op field kernels it replaced.  Batches 1 to 5 cover the
-    product reduction's odd tails."""
-    launch = _stub_launch
-
-    for mod in (MK, FU):
-        monkeypatch.setattr(mod, "on_cuda", lambda t: True)
-        monkeypatch.setattr(mod, "launch", launch)
+    none of the one-op field kernels it replaced; one Miller launch a call
+    (the Frobenius tail in it), and none of the Fq2 products, addition
+    steps and folds that tail replaced.  Batches 1 to 5 cover the product
+    reduction's odd tails."""
+    _stub_kernels(monkeypatch)
     rng = random.Random(SEED + 6)
     ps = [_g1(rng.randrange(1, R)) for _ in range(5)]
     qs = [_g2(rng.randrange(1, R)) for _ in range(5)]
@@ -332,14 +341,34 @@ def test_main_path_reaches_every_kernel_with_valid_arguments(monkeypatch):
                         G.encode_points(G.G2, qs[:n], "cpu"))
     assert sorted(k for k, v in counts.launches.items() if v) == sorted(counts.PAIRING_PATH)
     assert not any(counts.plain_calls.values())
-    assert counts.launches["miller_precompute"] == 6
-    assert counts.launches["g2_add_step"] == 2 * 6   # the Frobenius steps, one-step k_g2_precompute
+    assert counts.launches["miller_precompute"] == 6  # the 87 steps, the Frobenius tail in them
     assert counts.launches["fq12_cyc_pow"] == 3 * 6
     assert counts.launches["fq12_inv"] == 6          # one final exponentiation a call
     assert counts.launches["fq12_frob"] == 11 * 6    # 4 Frobenius maps, 7 conjugations
     assert counts.launches["to_affine"] == 2 * 6
-    assert counts.launches["fq2_mul"] == 4 * 6       # the Frobenius bases
+    assert [counts.launches[k] for k in counts.FROBENIUS_TAIL_ONE_OPS] == [0, 0, 0]
     assert not any(counts.launches[k] for k in counts.TO_AFFINE_ONE_OPS)
+
+
+def test_pairing_call_dispatches_few_tensor_ops(monkeypatch):
+    """One pairing call at B = 4, every wrapper taking its kernel branch
+    with the launch stubbed out, dispatches fewer than 150 aten ops in all
+    (the tensor glue of the Frobenius bases alone was 445 of 571 before
+    the Miller kernel made them), with 2 to_affine launches, one Miller
+    launch and no other Miller-layer launch."""
+    from test_torch_final_exp import _CountOutside
+    _stub_kernels(monkeypatch)
+    rng = random.Random(SEED + 7)
+    g1 = G.encode_points(G.G1, [_g1(rng.randrange(1, R)) for _ in range(4)], "cpu")
+    g2 = G.encode_points(G.G2, [_g2(rng.randrange(1, R)) for _ in range(4)], "cpu")
+    mode = _CountOutside()
+    counts.reset()
+    with mode:
+        P.pairing(g1, g2)
+    assert mode.ops < 150, mode.ops
+    assert [counts.launches[k] for k in ("to_affine", "miller_precompute", *counts.FROBENIUS_TAIL_ONE_OPS)] \
+        == [2, 1, 0, 0, 0]
+    assert not any(counts.plain_calls.values())
 
 
 def test_import_leaves_jax_unloaded():
@@ -471,24 +500,23 @@ def _team_g2_rounds(step):
     return [TS.Round(m, c) for m, c in parts]
 
 
-@pytest.mark.parametrize("kind", [0, 1, 2])
+@pytest.mark.parametrize("kind", [0, 1, 2, 3, 4])
 def test_team_g2_step_rounds_equal_plain_steps(kind):
-    """The team doubling step (kind 0) and mixed addition against Q (1)
-    and -Q (2), split into their rounds: R' and the line (ell_0, ell_vv px,
-    ell_vw py) equal fused._dbl_step / _add_step's bit for bit, on
+    """The team doubling step (kind 0) and mixed addition against Q (1),
+    -Q (2), pi(Q) (3) and -pi^2(Q) (4), split into their rounds: R' and
+    the line (ell_0, ell_vv px, ell_vw py) equal fused._dbl_step /
+    _add_step's bit for bit (the bases by fused._step_bases; the team's
+    Frobenius bases by their round, team_schedule.FROB), on
     kernel_cases.residues inputs (0, 1, q - 1 in the first lanes)."""
     from bn254_tpu_torch import team_schedule as TS
     d = TT._team_inputs(SEED + 20 + kind)
     st = TT.team_state(q=d["q"], p=d["p"], r=d["r"])
-    by = TS.SLOT["QN" if kind == 2 else "QY"]
+    if kind >= 3:
+        TT.team_round(st, TS.ROUNDS[TS.FROB[0]], 0)
     for rnd in _team_g2_rounds("dbl" if kind == 0 else "add"):
-        TT.team_round(st, rnd, by)
+        TT.team_round(st, rnd, TS.base_slot(kind) if kind else 0)
     r = d["r"].view(3, 2, 16, -1)
-    if kind == 0:
-        nr, c = FU._dbl_step(r)
-    else:
-        qx, qy = d["q"].view(2, 2, 16, -1)
-        nr, c = FU._add_step(r, torch.stack([qx, qy if kind == 1 else FU._neg(qy)]))
+    nr, c = FU._dbl_step(r) if kind == 0 else FU._add_step(r, FU._step_bases(d["q"])[kind])
     ell_0, ell_vw, ell_vv = c.unbind(0)
     px, py = d["p"]
     assert torch.equal(TT.team_slots(st, "RX", "RY", "RZ"), nr.reshape(6, 16, -1))
@@ -499,38 +527,39 @@ def test_team_g2_step_rounds_equal_plain_steps(kind):
                                                 torch.stack([py, torch.zeros_like(py)])])))
 
 
-@pytest.mark.parametrize("kinds", [(0,), (1,), (2,), (0, 1), (0, 2), (0, 0)])
+@pytest.mark.parametrize("kinds", [(0,), (1,), (2,), (0, 1), (0, 2), (0, 0),
+                                   (0, 3), (3, 4), (0, 3, 4), (4, 0, 2)])
 def test_team_miller_steps_equal_plain_steps(kinds):
     """Whole team Miller steps (square, G2 step and fold interleaved in
     their rounds, as step_rounds picks them: an addition after a doubling
     step starts in that step's last round) equal the plain steps of
-    miller_precompute_plain."""
-    from bn254_tpu_torch import team_schedule as TS
+    miller_precompute_plain; in the cases with the Frobenius additions
+    (kinds 3, 4) the model runs the bases' round first, as the kernel does
+    (team_schedule.device_kinds), the plain steps take fused._step_bases."""
     d = TT._team_inputs(SEED + 23 + len(kinds) * 3 + kinds[-1])
     st = TT.team_state(f=d["f"], q=d["q"], p=d["p"], r=d["r"])
     f, r = d["f"].view(2, 3, 2, 16, -1), d["r"].view(3, 2, 16, -1)
-    qx, qy = d["q"].view(2, 2, 16, -1)
-    for i, kind in enumerate(kinds):
-        rounds, base = TS.step_rounds(kinds, i)
-        for j in rounds:
-            TT.team_round(st, TS.ROUNDS[j], TS.SLOT["QN" if base == 2 else "QY"])
+    bases = FU._step_bases(d["q"])
+    TT.team_miller_steps(st, kinds)
+    for kind in kinds:
         if kind == 0:
             f = FU._sqr12(f)
             r, c = FU._dbl_step(r)
         else:
-            r, c = FU._add_step(r, torch.stack([qx, qy if kind == 1 else FU._neg(qy)]))
+            r, c = FU._add_step(r, bases[kind])
         f = FU._fold(f, c, *d["p"])
     assert torch.equal(TT.team_slots(st, "F0", "F1", "F2", "F3", "F4", "F5"), f.reshape(12, 16, -1))
     assert torch.equal(TT.team_slots(st, "RX", "RY", "RZ"), r.reshape(6, 16, -1))
 
 
 def test_team_miller_loop_equals_plain_version():
-    """The whole team Miller kernel, all 85 scheduled kinds, equals
+    """The whole team Miller kernel, all 87 kinds of the pairing (the 85
+    scheduled and the 2 Frobenius additions), equals
     miller_precompute_plain limb for limb on residue inputs with 0, 1 and
     q - 1 in the first lanes (lane 0 all zeros, as to_affine gives an
     infinity lane) and on real affine points."""
     d = TT._team_inputs(SEED + 26, batch=8)
-    kinds = P._PRE_KINDS.reshape(-1, 1)
+    kinds = P._LINE_KINDS
     got, want = TT.team_miller_precompute(d["q"], d["p"], kinds), FU.miller_precompute_plain(
         d["q"], d["p"], kinds)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
@@ -539,3 +568,14 @@ def test_team_miller_loop_equals_plain_version():
     pa, qa = (convert.pack(t) for t in convert.from_numpy((pa_np, qa_np), "cpu"))
     got, want = TT.team_miller_precompute(qa, pa, kinds), FU.miller_precompute_plain(qa, pa, kinds)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("kinds", [(0, 5), (-1,), (1, 7, 0)])
+def test_miller_precompute_refuses_a_kind_outside_step_kinds(kinds):
+    """miller_precompute refuses a kind outside STEP_KINDS before it
+    reaches a kernel or a plain version."""
+    d = TT._team_inputs(SEED + 29, batch=2)
+    counts.reset()
+    with pytest.raises(ValueError, match="miller_precompute"):
+        FU.miller_precompute(d["q"], d["p"], kinds)
+    assert not any(counts.plain_calls.values())

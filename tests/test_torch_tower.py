@@ -256,10 +256,11 @@ def test_team_kernel_bounds_count_lazy_fq2_products(label):
     squares and 2 scalings (10 + 12 + 4) and the fold's 13 (32.5); an
     addition step 68: 7 general products and 2 squares (17.5 + 4), e bx
     and d by (5), 2 scalings (4), the fold (32.5), its first 2 in the
-    doubling step before it, as the kernel runs them.  An Fq12 product
-    is 18 at 2.5.  Their batches leave a block partly empty (16384 = 1638
-    Miller blocks of 10 lanes and 4) and row 9 runs below one warp's
-    five teams (B = 3)."""
+    doubling step before it, as the kernel runs them; the 2 Frobenius
+    bases of the pairing's tail 2 lazy products each (10).  An Fq12
+    product is 18 at 2.5.  Their batches leave a block partly empty
+    (16384 = 1638 Miller blocks of 10 lanes and 4) and rows 6 and 9 run
+    below one warp's five teams (B = 3)."""
     from bn254_tpu_torch import kernel_cases as KC
     from bn254_tpu_torch import team_schedule as TS
     case = next(c for c in KC.CASES if c.label == label)
@@ -275,17 +276,19 @@ def test_team_kernel_bounds_count_lazy_fq2_products(label):
         assert min(case.batches) < 5 and 16384 % 20 == 4
     else:
         kinds = np.asarray(args[2]).ravel()
-        assert [len(r.muls) for r in TS.ROUNDS] == [17, 4, 16, 18, 2, 6, 16, 4]
-        assert (int((kinds == 0).sum()), len(kinds)) == (64, 85)
-        assert sum(len(TS.ROUNDS[r].muls) for i in range(85)
-                   for r in TS.step_rounds(kinds, i)[0]) == 64 * 37 + 21 * 28
+        assert [len(r.muls) for r in TS.ROUNDS] == [17, 4, 16, 18, 2, 6, 16, 4, 4]
+        assert (int((kinds == 0).sum()), len(kinds), tuple(kinds[-2:])) == (64, 87, (3, 4))
+        steps = TS.device_kinds(kinds)
+        assert len(steps) == 88 and steps[0] == TS.FROB_KIND
+        assert sum(len(TS.ROUNDS[r].muls) for i in range(88)
+                   for r in TS.step_rounds(steps, i)[0]) == 64 * 37 + 23 * 28 + 4
         work = lambda rounds: sum(KC.fq2_mul_work(m) for r in rounds for m in TS.ROUNDS[r].muls)
         assert (work(TS.DBL), work(TS.DBL_THEN_ADD + TS.ADD_AFTER_DBL)) == (88.5, 88.5 + 68)
         assert [sum(KC.fq2_mul_work(m) == 2 for m in TS.ROUNDS[r].muls)
                 for r in TS.DBL + TS.ADD] == [4, 2, 2, 0, 4, 0, 0]
-        assert products == int(10 * (64 * 88.5 + 21 * 68))
-        assert nbytes == 10 * 24 * 64 + 4 * 85
-        assert 16384 in case.batches and 16384 % 10 == 4
+        assert products == int(10 * (64 * 88.5 + 23 * 68 + 4 * 2.5))
+        assert nbytes == 10 * 24 * 64 + 4 * 88
+        assert 16384 in case.batches and 16384 % 10 == 4 and min(case.batches) < 5
 
 
 def test_final_exponentiation_vs_jax():
@@ -446,8 +449,10 @@ def team_round(state, rnd, vb, slots=None):
 
 def team_state(f=None, q=None, p=None, r=None):
     """A lane state as the kernel's start writes it: f (default 1), R = (qx,
-    qy, 1) unless r is given, Q, -Q's y, (px, 0), (py, 0), b2; packed
-    tensors [12 / 4 / 2 / 6, 16, B]."""
+    qy, 1) unless r is given, Q, -Q, and for the Frobenius bases' round
+    conj(qx), conj(qy) and the twist factors (_build.twist_consts) in
+    P0-P5; (px, 0), (py, 0), b2; packed tensors [12 / 4 / 2 / 6, 16, B]."""
+    from bn254_tpu_torch import _build
     from bn254_tpu_torch import team_schedule as TS
     from bn254_tpu_torch.spec import constants as SC
     like = next(t for t in (f, q, p, r) if t is not None)
@@ -455,15 +460,20 @@ def team_state(f=None, q=None, p=None, r=None):
     one = FU._fq12_one(like[0])[0, 0]
     zero = torch.zeros_like(one)
     st = [zero] * TS.N_SLOTS
-    st[:6] = list(f.view(6, 2, 16, batch)) if f is not None else [one] + [zero] * 5
+    put = lambda names, vals: [st.__setitem__(TS.SLOT[n], v) for n, v in zip(names, vals)]
+    put(("F0", "F1", "F2", "F3", "F4", "F5"),
+        f.view(6, 2, 16, batch) if f is not None else [one] + [zero] * 5)
     if q is not None:
         qx, qy = q.view(2, 2, 16, batch)
-        st[9:12] = [qx, qy, FU._neg(qy)]
-        st[6:9] = [qx, qy, one]
+        put(("RX", "RY", "RZ"), (qx, qy, one))
+        put(("Q1X", "Q1Y", "Q2X", "Q2Y"), (qx, qy, qx, FU._neg(qy)))
+        conj = lambda a: torch.stack([a[0], FU._neg(a[1])])
+        put([f"P{i}" for i in range(6)],
+            [conj(qx), conj(qy)] + [FU._const2(t, qx) for t in _build.twist_consts()])
     if r is not None:
-        st[6:9] = list(r.view(3, 2, 16, batch))
+        put(("RX", "RY", "RZ"), r.view(3, 2, 16, batch))
     if p is not None:
-        st[12:14] = [torch.stack([c, zero[0]]) for c in p]
+        put(("PX", "PY"), [torch.stack([c, zero[0]]) for c in p])
     st[TS.SLOT["B2"]] = torch.stack([FU._const(v, zero[0]) for v in SC.B2])
     return st
 
@@ -473,18 +483,27 @@ def team_slots(state, *names):
     return torch.stack([state[TS.SLOT[n]] for n in names]).reshape(2 * len(names), 16, -1)
 
 
-def team_miller_precompute(q, p, kinds):
-    """The whole team Miller kernel on the CPU: each step runs the rounds
-    team_schedule.step_rounds picks (doubling, addition against Q or -Q,
-    an addition's first round taken into the doubling step before it);
-    returns (f [12, 16, B], r [6, 16, B]) as fused.miller_precompute."""
+def team_miller_steps(state, kinds):
+    """The team Miller kernel's steps on a lane state, in place: each step
+    of team_schedule.device_kinds (the Frobenius bases' round first where
+    kinds 3 or 4 come) runs the rounds step_rounds picks (doubling,
+    addition against Q, -Q, pi(Q) or -pi^2(Q), its base read through vb =
+    base_slot(kind), an addition's first round taken into the doubling
+    step before it)."""
     from bn254_tpu_torch import team_schedule as TS
-    st = team_state(q=q, p=p)
-    kinds = np.asarray(kinds).ravel()
+    kinds = TS.device_kinds(kinds)
     for i in range(len(kinds)):
         rounds, base = TS.step_rounds(kinds, i)
         for r in rounds:
-            team_round(st, TS.ROUNDS[r], TS.SLOT["QN" if base == 2 else "QY"])
+            team_round(state, TS.ROUNDS[r], TS.base_slot(base) if base else 0)
+
+
+def team_miller_precompute(q, p, kinds):
+    """The whole team Miller kernel on the CPU (team_miller_steps from f =
+    1, R = Q); returns (f [12, 16, B], r [6, 16, B]) as
+    fused.miller_precompute."""
+    st = team_state(q=q, p=p)
+    team_miller_steps(st, kinds)
     return (team_slots(st, "F0", "F1", "F2", "F3", "F4", "F5"),
             team_slots(st, "RX", "RY", "RZ"))
 
@@ -498,17 +517,19 @@ def _team_inputs(seed, batch=16):
             for k, n in (("f", 12), ("r", 6), ("c", 6), ("q", 4), ("p", 2))}
 
 
-@pytest.mark.parametrize("index", range(8))
+@pytest.mark.parametrize("index", range(9))
 def test_team_schedule_round_is_race_free(index):
     """Every round of the Miller kernel's table passes check_round, fits
-    the kernel's passes, and the header holds it."""
+    the kernel's passes, and the header holds it; only the Frobenius
+    bases' round (8) has no combinations."""
     from bn254_tpu_torch import team_schedule as TS
     rnd = TS.ROUNDS[index]
     TS.check_round(rnd, TS.TEAM, TS.NAMES)
-    assert 0 < len(rnd.muls) <= 18 and 0 < len(rnd.lins) <= 12
+    assert 0 < len(rnd.muls) <= 18 and len(rnd.lins) <= 12 and (rnd.lins or index == 8)
     used = set().union(*(TS.reads(m.x) | TS.reads(m.y) | {m.dst} for m in rnd.muls),
                        *(TS.reads(c.lin) | {c.dst} for c in rnd.lins))
-    assert all(s == TS.VIRT or s < TS.N_SLOTS for s, _ in (TS.slot(t, TS.NAMES) for t in used))
+    assert all(s in TS.VIRTUAL.values() or s < TS.N_SLOTS
+               for s, _ in (TS.slot(t, TS.NAMES) for t in used))
     assert TS.header().count("#define BN254_MILLER_ROUNDS") == 1
 
 
