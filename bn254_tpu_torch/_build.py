@@ -14,14 +14,19 @@ of 1 and the twist coefficient b2, the Frobenius factors of Fq12
 (``frob12_consts``) and of the twist (``twist_consts``), and the team
 schedules of the Miller kernel (``team_schedule.header``), the prepared
 Miller loop (``loop_schedule.header``), the G2 line steps
-(``precompute_schedule.header``) and the GLV ladder
-(``ladder_schedule.header``).
+(``precompute_schedule.header``), the GLV ladder
+(``ladder_schedule.header``) and the tower probe
+(``probe_schedule.header``).
 (The Montgomery kernels take their modulus as an argument instead, so they
 serve Fr as well.)
 
 Every C entry returns ``cudaGetLastError()`` right after its launch;
 ``launch`` raises if it is not 0 and otherwise adds one to the kernel's
-launch count.
+launch count.  A one-op kernel's time between back-to-back calls is its
+wrapper's host time (PERF.md), so ``launch`` keeps the entries' ctypes
+functions in a dict when the library loads and reads the current stream
+as the raw handle PyTorch's own generated code reads, without building a
+``torch.cuda.Stream``.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ from pathlib import Path
 
 import torch
 
-from . import counts, ladder_schedule, loop_schedule, precompute_schedule, team_schedule
+from . import (counts, ladder_schedule, loop_schedule, precompute_schedule, probe_schedule,
+               team_schedule)
 from .limbs import Mod
 from .spec import constants as C
 from .spec import field as SF
@@ -84,6 +90,7 @@ _SIGS = {
 assert tuple(_SIGS) == counts.KERNELS
 
 _LIB = None
+_ENTRIES = {}           # kernel name -> its C entry, set when the library loads
 
 
 def _words(v: int, n: int = 8) -> str:
@@ -130,6 +137,7 @@ def consts_header() -> str:
         loop_schedule.header(),
         precompute_schedule.header(),
         ladder_schedule.header(),
+        probe_schedule.header(),
     ])
 
 
@@ -214,19 +222,23 @@ def library():
         lib.bn254_to_affine_geometry.restype = ctypes.c_int
         lib.bn254_miller_blocks_per_sm.argtypes = [ctypes.c_void_p]
         lib.bn254_miller_blocks_per_sm.restype = ctypes.c_int
+        _ENTRIES.clear()
+        _ENTRIES.update((name, getattr(lib, "bn254_" + name)) for name in _SIGS)
         _LIB = lib
     return _LIB
 
 
 def launch(name: str, batch: int, *args):
-    """Launch kernel `name` on PyTorch's current stream; raise on a refused
-    launch, count it otherwise."""
-    lib = library()
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib, "bn254_" + name)(*args, batch, stream)
+    """Launch kernel `name` on PyTorch's current stream (of the current
+    device, read on every call); raise on a refused launch, count it
+    otherwise."""
+    if _LIB is None:
+        library()
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+    rc = _ENTRIES[name](*args, batch, stream)
     if rc:
         raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{lib.bn254_error_string(rc).decode()}")
+                           f"{_LIB.bn254_error_string(rc).decode()}")
     counts.launches[name] += 1
 
 
@@ -251,8 +263,8 @@ def check(name: str, batch: int, device, *specs):
     if batch < 1:
         raise ValueError(f"{name}: empty batch")
     for t, lead in specs:
-        want = tuple(lead) + (16, batch)
-        if (t.dtype != torch.int32 or tuple(t.shape) != want
+        want = (*lead, 16, batch)
+        if (t.dtype != torch.int32 or t.shape != want
                 or t.device != device or not t.is_contiguous()):
             raise ValueError(
                 f"{name}: want a contiguous int32 tensor of shape {want} on "

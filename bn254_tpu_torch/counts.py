@@ -41,8 +41,11 @@ GLV_PATH = ("mont_mul",                  # endo: beta x
             "point_add", "glv_ladder")   # p1 + p2, the ladder
 PREPARED_MILLER_PATH = ("g2_precompute",   # the 87 lines, the Frobenius bases among them
                         "miller_loop")     # the 87 folds and 64 squares
-PROBE_PATH = ("chain_mont", "chain_tower",
+PROBE_PATH = ("chain_mont",
+              "chain_tower",      # one launch an op, each on the engine the main path
+                                  # runs it on (fq2: three threads a lane; fq6, fq12: six)
               # each op once as its own kernel, beside its in-chain rate
+              # (fq2_mul_fused on the three-thread Fq2 step)
               "mont_mul", "mont_sqr", "fq2_mul_fused", "fq2_sqr_fused",
               "fq12_sqr", "fq12_mul", "fq12_cyc_sqr")
 CODEC_PATH = ("mont_mul", "mont_sqr", "fq2_mul", "fq2_sqr",   # curve equation, y choice

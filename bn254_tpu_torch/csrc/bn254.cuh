@@ -614,38 +614,9 @@ static __device__ __noinline__ void fq6_inv(Fq6& r, const Fq6& a, PowDigits inv)
 }
 
 // ---------------------------------------------------------------------------
-// Fq12 = Fq6[w]/(w^2 - v)
+// Fq12 = Fq6[w]/(w^2 - v): the final exponentiation's inverse (its products
+// and squares run on the six-thread team, fq12_team.cuh)
 // ---------------------------------------------------------------------------
-
-// Karatsuba over Fq6 (fq12.rs:316-328)
-static __device__ __noinline__ void fq12_mul(Fq12& r, const Fq12& a, const Fq12& b) {
-  Fq6 aa, bb, s, t, cross, c0, c1;
-  fq6_mul(aa, a.c0, b.c0);
-  fq6_mul(bb, a.c1, b.c1);
-  fq6_add(s, a.c0, a.c1);
-  fq6_add(t, b.c0, b.c1);
-  fq6_mul(cross, s, t);
-  fq6_mul_by_nonresidue(c0, bb);
-  fq6_add(c0, c0, aa);
-  fq6_sub(c1, cross, aa);
-  fq6_sub(c1, c1, bb);
-  r.c0 = c0; r.c1 = c1;
-}
-
-// (fq12.rs:295-303)
-static __device__ __noinline__ void fq12_sqr(Fq12& r, const Fq12& a) {
-  Fq6 ab, s, t, m, c0, c1;
-  fq6_mul(ab, a.c0, a.c1);
-  fq6_mul_by_nonresidue(s, a.c1);
-  fq6_add(s, s, a.c0);
-  fq6_add(t, a.c0, a.c1);
-  fq6_mul(m, s, t);
-  fq6_sub(m, m, ab);
-  fq6_mul_by_nonresidue(s, ab);
-  fq6_sub(c0, m, s);
-  fq6_add(c1, ab, ab);
-  r.c0 = c0; r.c1 = c1;
-}
 
 // (fq12.rs:305-313): 2 Fq6 squares, the Fq6 inverse, 2 Fq6 products;
 // 0 -> 0 without a branch
@@ -662,48 +633,6 @@ static __device__ __noinline__ void fq12_inv(Fq12& r, const Fq12& a, PowDigits i
   fq2_neg(c1.c1, c1.c1);
   fq2_neg(c1.c2, c1.c2);
   r.c0 = c0; r.c1 = c1;
-}
-
-// Granger-Scott squaring (fq12.rs:198-247): a true square only in the
-// cyclotomic subgroup, the same polynomial as tower.fq12_cyclotomic_sqr
-static __device__ __noinline__ void cyc_sq_pair(Fq2& ta, Fq2& tb, const Fq2& u, const Fq2& v) {
-  Fq2 tmp, s, t, x;
-  fq2_mul(tmp, u, v);
-  fq2_add(s, u, v);
-  fq2_mul_by_xi(t, v);
-  fq2_add(t, t, u);
-  fq2_mul(x, s, t);
-  fq2_sub(x, x, tmp);
-  fq2_mul_by_xi(t, tmp);
-  fq2_sub(ta, x, t);
-  fq2_add(tb, tmp, tmp);
-}
-
-// x = t -/+ base; 2x + t
-__device__ __forceinline__ void cyc_tri(Fq2& r, const Fq2& base, const Fq2& t, bool minus) {
-  Fq2 x;
-  if (minus) fq2_sub(x, t, base); else fq2_add(x, t, base);
-  fq2_add(x, x, x);
-  fq2_add(r, x, t);
-}
-
-static __device__ __noinline__ void fq12_cyclotomic_sqr(Fq12& r, const Fq12& a) {
-  const Fq2 &z0 = a.c0.c0, &z4 = a.c0.c1, &z3 = a.c0.c2;
-  const Fq2 &z2 = a.c1.c0, &z1 = a.c1.c1, &z5 = a.c1.c2;
-  Fq2 t0, t1, t2, t3, t4, t5, tmp;
-  cyc_sq_pair(t0, t1, z0, z1);
-  cyc_sq_pair(t2, t3, z2, z3);
-  cyc_sq_pair(t4, t5, z4, z5);
-  Fq2 nz0, nz1, nz2, nz3, nz4, nz5;
-  cyc_tri(nz0, z0, t0, true);
-  cyc_tri(nz1, z1, t1, false);
-  fq2_mul_by_xi(tmp, t5);
-  cyc_tri(nz2, z2, tmp, false);
-  cyc_tri(nz3, z3, t4, true);
-  cyc_tri(nz4, z4, t2, true);
-  cyc_tri(nz5, z5, t3, false);
-  r.c0.c0 = nz0; r.c0.c1 = nz4; r.c0.c2 = nz3;
-  r.c1.c0 = nz2; r.c1.c1 = nz1; r.c1.c2 = nz5;
 }
 
 }  // namespace bn254

@@ -17,9 +17,9 @@
 // xi applied part way, read from a per-thread table of slot numbers and
 // signs, so a warp does not run six different formulas one after the
 // other.  Every value is fully reduced after each op, so the outputs are
-// the single-thread formulas' (fq12_mul, fq12_cyclotomic_sqr, fq12_sqr),
-// the plain G2 line steps' (fused._dbl_step, _add_step) and the plain 024
-// fold's bit for bit: the same field values, added in another grouping.
+// the plain versions' (fused._mul12, _cyc_sqr, _sqr12), the plain G2 line
+// steps' (fused._dbl_step, _add_step) and the plain 024 fold's bit for
+// bit: the same field values, added in another grouping.
 //
 // The team steps here and their users:
 //   team_fq12_mul_products / _coeff   Fq12 product: row 9 (k_fq12_mul),
@@ -69,6 +69,30 @@ __device__ __forceinline__ Fq2 ld2_s(const uint32_t* s, int i) {
 __device__ __forceinline__ void st2_s(uint32_t* s, int i, const Fq2& v) {
   fq_store_words(s + kTeamSlot * i, v.c0);
   fq_store_words(s + kTeamSlot * i + 8, v.c1);
+}
+
+// Team geometry: thread k of team t of warp v holds lane (32 / T) v + t of
+// the block (a team of T threads, 32 / T teams a warp: six threads five
+// lanes, threads 30 and 31 idle); the threads past the warp's last team,
+// and teams past B, are inactive and only keep the warp's barriers and
+// shuffles.
+constexpr int kTeam = 6, kTeamsPerWarp = 32 / kTeam;
+
+struct TeamThread {
+  int k, slot, lane;
+  bool active;
+};
+
+template <int T = kTeam>
+__device__ __forceinline__ TeamThread team_thread(int lanes_per_block, int B) {
+  constexpr int per_warp = 32 / T;
+  const int warp = threadIdx.x / 32, team = (threadIdx.x % 32) / T;
+  TeamThread t;
+  t.k = threadIdx.x % 32 - team * T;
+  t.slot = warp * per_warp + team;
+  t.lane = blockIdx.x * lanes_per_block + t.slot;
+  t.active = team < per_warp && t.lane < B;
+  return t;
 }
 
 // ---------------------------------------------------------------------------
@@ -233,6 +257,12 @@ __device__ __forceinline__ Fq team_redc(uint32_t t[16], const Modulus& m) {
   for (int j = 0; j < 8; ++j) r.v[j] = bw ? t[j + 8] : r.v[j];
   return r;
 }
+#else
+__device__ __forceinline__ Fq team_redc(uint32_t t[16], const Modulus& m) {
+  Fq r;
+  redc_wide(r, t, m);
+  return r;
+}
 #endif
 
 __device__ __forceinline__ Fq2 team_fq2_mul(const Fq2& a, const Fq2& b) {
@@ -253,6 +283,127 @@ __device__ __forceinline__ Fq2 team_fq2_mul(const Fq2& a, const Fq2& b) {
 #else
   return fq2_mul_lazy_inl(a, b);
 #endif
+}
+
+// ---------------------------------------------------------------------------
+// The lazy Fq2 product and the Fq2 square on a team of three threads a
+// lane (ten lanes a warp, threads 30 and 31 idle).  Every thread of the
+// team holds the operands; thread k makes one 512-bit product with the
+// inlined wide_mul (the product: a0 b0, a1 b1, (a0 + a1)(b0 + b1); the
+// square: (a0 + a1)(a0 - a1) on threads 0 and 2, a0 a1 on thread 1, the
+// sums left unreduced, below 2q); the product's team exchanges them by
+// warp shuffles, and threads 0 and 1 reduce output coefficient 0 and 1
+// (team_redc) on fq2_mul_lazy_inl's t = a0 b0 + q^2 - a1 b1 and cross =
+// a0 b1 + a1 b0, or on the square's (a0 + a1)(a0 - a1) and 2 a0 a1 (thread
+// 2 reduces a value no one reads).  team3_gather then hands both
+// coefficients to every thread of the team.  The operands come from
+// selects on k, so the three threads run one code.  A product's serial
+// depth is one 512-bit product, two shuffle rounds and one reduction,
+// where one thread runs three products and two reductions; the square's
+// one product and one reduction, where one thread runs two CIOS products.
+// Every value ends fully reduced: the same limbs as fq2_mul_lazy_inl and
+// the complex square.  Every thread of the warp calls these (the
+// shuffles take the whole warp); base is the warp lane of the team's
+// thread 0.  Users: the probe's Fq2 chains (probes.cu k_chain_fq2) and
+// row 15 (fused.cu k_fq2_mul_fused).
+// ---------------------------------------------------------------------------
+
+constexpr int kTeam3 = 3, kTeam3Warps = 4, kTeam3Lanes = 32 / kTeam3 * kTeam3Warps;   // a block
+
+// r = the N words v of warp lane src
+template <int N>
+__device__ __forceinline__ void shfl_words(uint32_t (&r)[N], const uint32_t* v, int src) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) r[j] = __shfl_sync(0xFFFFFFFFu, v[j], src);
+}
+
+// r = x + y if add, else x, over 8 words (the callers' bounds leave no carry out)
+__device__ __forceinline__ void add8_if(uint32_t r[8], const uint32_t x[8], const uint32_t y[8],
+                                        bool add) {
+  const uint32_t m = add ? 0xFFFFFFFFu : 0u;
+  uint32_t z[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) z[j] = y[j] & m;
+#ifdef __CUDA_ARCH__
+  add8c(r, x, z, 0);
+#else
+  uint64_t c = 0;
+  for (int j = 0; j < 8; ++j) {
+    const uint64_t s = (uint64_t)x[j] + z[j] + c;
+    r[j] = (uint32_t)s;
+    c = s >> 32;
+  }
+#endif
+}
+
+// r = a + b, r = a - b over 16 words (no carry out, a >= b: the callers' bounds)
+__device__ __forceinline__ void add16(uint32_t r[16], const uint32_t a[16], const uint32_t b[16]) {
+#ifdef __CUDA_ARCH__
+  add8c(r + 8, a + 8, b + 8, add8c(r, a, b, 0));
+#else
+  wide_add(r, a, b);
+#endif
+}
+
+__device__ __forceinline__ void sub16(uint32_t r[16], const uint32_t a[16], const uint32_t b[16]) {
+#ifdef __CUDA_ARCH__
+  sub8b(r + 8, a + 8, b + 8, sub8b(r, a, b, 0));
+#else
+  wide_sub(r, a, b);
+#endif
+}
+
+// coefficient k (k < 2) of a b on thread k of the team
+__device__ __forceinline__ Fq team3_fq2_mul_coeff(int k, int base, const Fq2& a, const Fq2& b) {
+  const uint32_t q_squared[16] = {BN254_FQ_Q_SQUARED};
+  const bool one = k == 1;
+  uint32_t x[8], y[8], p[16], r[16], s[16], t[16], u[16];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    x[j] = one ? a.c1.v[j] : a.c0.v[j];
+    y[j] = one ? b.c1.v[j] : b.c0.v[j];
+  }
+  add8_if(x, x, a.c1.v, k == 2);
+  add8_if(y, y, b.c1.v, k == 2);
+  wide_mul(p, x, y);                     // m00, m11, m22 on threads 0, 1, 2
+  shfl_words(r, p, base + (k == 0));     // thread 0: m11; threads 1 and 2: m00
+  shfl_words(s, p, base + 2);            // m22
+  // thread 1: m22 - m00 - m11; threads 0 and 2: m00 + q^2 - m11
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    t[j] = one ? s[j] : p[j];
+    u[j] = one ? 0u : q_squared[j];
+  }
+  add16(t, t, u);
+  sub16(t, t, r);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) u[j] = one ? p[j] : 0u;
+  sub16(t, t, u);
+  return team_redc(t, fq_modulus());
+}
+
+// coefficient k (k < 2) of a^2 on thread k of the team (fq2.rs:105-117)
+__device__ __forceinline__ Fq team3_fq2_sqr_coeff(int k, const Fq2& a) {
+  const bool one = k == 1;
+  const Fq d = tfq_sub(a.c0, a.c1);
+  uint32_t x[8], y[8], p[16];
+  add8_if(x, a.c0.v, a.c1.v, !one);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) y[j] = one ? a.c1.v[j] : d.v[j];
+  wide_mul(p, x, y);
+  const uint32_t sh = one;               // 2 a0 a1 < 2q^2: doubling loses no bit
+#pragma unroll
+  for (int j = 15; j > 0; --j) p[j] = (p[j] << sh) | ((p[j - 1] >> 31) & sh);
+  p[0] <<= sh;
+  return team_redc(p, fq_modulus());
+}
+
+// (coefficient 0 of thread base, coefficient 1 of thread base + 1) on every thread
+__device__ __forceinline__ Fq2 team3_gather(int base, const Fq& c) {
+  Fq2 r;
+  shfl_words(r.c0.v, c.v, base);
+  shfl_words(r.c1.v, c.v, base + 1);
+  return r;
 }
 
 // a - b if neg else a + b
@@ -364,7 +515,7 @@ __device__ __forceinline__ Fq2 team_fq12_mul_coeff(const uint32_t* P, int j) {
 }
 
 // ---------------------------------------------------------------------------
-// Granger-Scott cyclotomic square (fq12_cyclotomic_sqr): three pairs (u,
+// Granger-Scott cyclotomic square (fq12.rs:198-247): three pairs (u,
 // v) = (z0, z1), (z2, z3), (z4, z5), stored at coefficients (0, 4), (3,
 // 2), (1, 5).  Thread k computes, for pair p = k % 3, tmp_p = u v (k < 3)
 // or (u + v)(xi v + u) (k >= 3) into slot k of P.

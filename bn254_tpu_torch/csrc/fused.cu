@@ -8,10 +8,9 @@
 // prepared-G2 entry (k_g2_precompute), which replace its scan over rows 14
 // and 7.
 //
-// Two designs.  One thread a lane (rows 5, 15-16: k_fq_pow,
-// k_fq2_mul_fused, k_fq2_sqr_fused; and k_fq12_inv and
-// the codec's Fq2 square root k_fq2_sqrt; k_fq12_frob runs one thread a
-// coefficient): 128-thread
+// Two designs.  One thread a lane (rows 5, 16: k_fq_pow, k_fq2_sqr_fused;
+// and k_fq12_inv and the codec's Fq2 square root k_fq2_sqrt; k_fq12_frob
+// runs one thread a coefficient): 128-thread
 // blocks, the ragged edge masked; a kernel reads its operands once, runs
 // the whole formula with every intermediate on the thread's registers and
 // stack, and writes its result once, as the TPU kernels keep theirs in
@@ -27,7 +26,9 @@
 // 9, 10, 11, 13 (k_miller_precompute, k_miller_loop and its one-step
 // launches for rows 8 and 13, k_fq12_mul, k_fq12_cyc_sqr, k_fq12_cyc_pow),
 // five lanes to a warp, threads 30 and 31 idle; four in rows 14 and 7
-// (k_g2_precompute and its one-step launches), eight lanes to a warp.  The
+// (k_g2_precompute and its one-step launches), eight lanes to a warp;
+// three in row 15 (k_fq2_mul_fused: one Fq2 product, its three 512-bit
+// products exchanged by warp shuffles, no shared memory), ten.  The
 // lane's Fq12 or G2 state and its product scratch sit in shared memory as
 // Fq2 slots, each thread computes its share of an op's Fq2 products, and
 // after a __syncwarp its share of the output coefficients, so no thread
@@ -181,29 +182,6 @@ __global__ void k_fq12_frob(int power, const int32_t* __restrict__ a,
     }
   }
   store(out, 2 * k, B, lane, v);
-}
-
-// Team geometry (fq12_team.cuh): thread k of team t of warp v holds
-// coefficient k of lane 5 v + t of the block; threads 30 and 31 of each
-// warp, and teams past B, only keep the warp's barriers.  (A team of T
-// threads: 32 / T teams a warp.)
-constexpr int kTeam = 6, kTeamsPerWarp = 5;
-
-struct TeamThread {
-  int k, slot, lane;
-  bool active;
-};
-
-template <int T = kTeam>
-__device__ __forceinline__ TeamThread team_thread(int lanes_per_block, int B) {
-  constexpr int per_warp = 32 / T;
-  const int warp = threadIdx.x / 32, team = (threadIdx.x % 32) / T;
-  TeamThread t;
-  t.k = threadIdx.x % 32 - team * T;
-  t.slot = warp * per_warp + team;
-  t.lane = blockIdx.x * lanes_per_block + t.slot;
-  t.active = team < per_warp && t.lane < B;
-  return t;
 }
 
 // tx, ty, tx conj(tx), ty conj(ty): Fq2 j at 16 j, c0's words, then c1's
@@ -431,17 +409,30 @@ int launch_lines(const int32_t* kinds, int n, const int32_t* q, const int32_t* r
 }
 
 // pallas_fused.py _call_impl("fq2_mul"): kfq2_mul in its default lazy
-// spelling, two Montgomery reductions of 512-bit products (bn254.cuh
-// fq2_mul_lazy).  Bound by its bytes, 384 per lane, at one-op batches.
+// spelling, as one step of the three-thread Fq2 team (fq12_team.cuh
+// team3_fq2_mul_coeff): thread k of a lane's team makes one of the three
+// 512-bit products, threads 0 and 1 reduce and store coefficient 0 and 1,
+// inlined, with no stack frame; 4 warps, 40 lanes a block.  Thread k
+// loads coordinate k & 1 of a and b, and thread 2 takes coordinate 1 from
+// thread 1 by shuffles: a team's three threads loading both coordinates
+// ran 0.0533 ms at 262144 lanes, this 0.0457, the one-thread kernel it
+// replaced 0.0500 (PERF.md).  Bound by its bytes, 384 per lane; at the
+// one-op batch the wrapper's host time sets the time between back-to-back
+// calls.
 __global__ void k_fq2_mul_fused(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                                 int32_t* __restrict__ out, int B) {
-  int lane = lane_index();
-  if (lane >= B) return;
-  Fq2 x, y;
-  load(x, a, 0, B, lane);
-  load(y, b, 0, B, lane);
-  fq2_mul_lazy(x, x, y);
-  store(out, 0, B, lane, x);
+  const TeamThread t = team_thread<kTeam3>(kTeam3Lanes, B);
+  const int base = threadIdx.x % 32 - t.k;
+  Fq x{}, y{};
+  if (t.active) {
+    load(x, a, t.k & 1, B, t.lane);
+    load(y, b, t.k & 1, B, t.lane);
+  }
+  Fq x1, y1;                     // coordinate 1, thread 1's
+  shfl_words(x1.v, x.v, base + 1);
+  shfl_words(y1.v, y.v, base + 1);
+  const Fq c = team3_fq2_mul_coeff(t.k, base, Fq2{x, x1}, Fq2{y, y1});
+  if (t.active && t.k < 2) store(out, t.k, B, t.lane, c);
 }
 
 // pallas_fused.py _call_impl("fq2_sqr"): kfq2_sqr, the eager complex
@@ -698,7 +689,9 @@ int bn254_g2_dbl_step(const int32_t* r, int32_t* r_out, int32_t* c_out, int B,
 
 int bn254_fq2_mul_fused(const int32_t* a, const int32_t* b, int32_t* out, int B,
                         cudaStream_t stream) {
-  BN254_LAUNCH(k_fq2_mul_fused, a, b, out);
+  k_fq2_mul_fused<<<(B + kTeam3Lanes - 1) / kTeam3Lanes, 32 * kTeam3Warps, 0, stream>>>(
+      a, b, out, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int bn254_fq2_sqr_fused(const int32_t* a, int32_t* out, int B, cudaStream_t stream) {

@@ -847,9 +847,11 @@ CASES = (
                  FU.glv_ladder_plain, lambda rng, b, d, nc=nc: glv_args(rng, nc, b, d),
                  glv_work, depth=glv_depth)
       for nc in (1, 2)),
+    # the three-thread Fq2 step (3: fewer lanes than a warp's ten teams)
     KernelCase("fq2_mul_fused", "fq2_mul_fused", _FU_CU, f"{_PF}:990", FU.fq2_mul,
                FU.fq2_mul_lazy_plain, fq2_extremes,
-               lambda a, b: (_per_lane(FQ2_MUL_LAZY_PRODUCTS, a), _io(_lanes(a), 6))),
+               lambda a, b: (_per_lane(FQ2_MUL_LAZY_PRODUCTS, a), _io(_lanes(a), 6)),
+               batches=(16384, 1000, 3)),
     KernelCase("fq2_sqr_fused", "fq2_sqr_fused", _FU_CU, f"{_PF}:990", FU.fq2_sqr,
                FU.fq2_sqr_fused_plain, lambda rng, b, d: fq2_extremes(rng, b, d)[:1],
                lambda a: (_per_lane(FQ2_SQR_PRODUCTS, a), _io(_lanes(a), 4))),
@@ -857,9 +859,10 @@ CASES = (
                  PB.chain_mont, PB.chain_mont_plain, probe_args("chain_mont", impl, 64),
                  probe_work, batches=(32768, 1000))
       for impl in PB.MONT_IMPLS),
+    # 3: fewer lanes than a warp's teams (ten of three, five of six)
     *(KernelCase("chain_tower", f"chain_tower[{op}]", _PR_CU, "scripts/bench_tower.py:74",
                  PB.chain_tower, PB.chain_tower_plain, probe_args("chain_tower", op, 32),
-                 probe_work, batches=(8192, 1000))
+                 probe_work, batches=(8192, 1000, 3))
       for op in PB.OPS),
     *(KernelCase("msm_bucket_sort", f"msm_bucket_sort[{label}]", _GR_CU, f"{_PF}:1635",
                  FU.msm_bucket_sort, FU.msm_bucket_sort_plain, sort_args(1, signed, skew),

@@ -16,7 +16,12 @@ cyclotomic inputs (on the random inputs here it is a fixed polynomial,
 held only against its plain version).
 
 Wrappers launch csrc/probes.cu for a CUDA tensor and run the plain
-version (the plain op applied ``chain`` times) for a CPU tensor.
+version (the plain op applied ``chain`` times) for a CPU tensor.  On the
+card each tower op runs on the engine the main path runs it on: fq_mul
+one thread a lane (``chain_mont``'s kernel), fq2_mul and fq2_sqr the
+three-thread Fq2 step, fq6_mul a six-thread round
+(``probe_schedule.FQ6_MUL``), the Fq12 ops the six-thread team's steps;
+so the in-chain rate is the pairing kernels' rate.
 ``probe_mont`` and ``probe_tower`` are the entries: random operands from
 a seed, each chain once for its output and then timed, the rate in G
 Fq-products/s, and each op also run and timed as its own one-op kernel

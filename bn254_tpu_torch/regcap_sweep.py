@@ -10,8 +10,10 @@ library of their own in ``_build/``, beside the default one), and each
 kernel case `label` of ``kernel_cases`` (default ``fq12_cyc_pow[naf]``,
 TPU row 11) is checked against its plain version at its batches
 (tolerance 0) and timed at its first batch, or at B where the label says
-``@B`` (CUDA events, mean of 10 after a warm-up; a one-op kernel needs a
-batch past its wrapper's host time to show its body).  One line per
+``@B``: CUDA events around 10 back-to-back calls after a warm-up (a
+one-op kernel's wrapper host time shows there below a batch that shows
+its body), and around 10 more enqueued behind a device sleep, where the
+host's dispatch hides behind the queue (the kernels' device time).  One line per
 variant and label: ptxas's registers, stack and spill stores of the
 case's entry, ms, and the bound its inputs give.  A label the checkout
 does not have is skipped, so the same command times an older checkout
@@ -63,6 +65,22 @@ def _ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _queued_ms(fn, reps: int = 10) -> float:
+    """ms a call of `reps` back-to-back calls enqueued behind a ~1 ms
+    device sleep: the host's dispatch hides behind the queue, so this is
+    the kernels' device time (with the gaps between launches)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("regcap_sweep: no CUDA device", file=sys.stderr)
@@ -98,10 +116,11 @@ def main(argv) -> int:
             batch = int(at) if at else case.batches[0]
             args = case.make_args(np.random.default_rng(SEED), batch, dev)
             ms = _ms(lambda: case.kernel(*args))
+            device = _queued_ms(lambda: case.kernel(*args))
             bound, by = KC.bound_ms(*case.work(*args))
             print(f"{label} {variant}: {usage}; max_abs_err 0 at B={case.batches}; "
-                  f"{ms:.4f} ms at B={batch} (bound {bound:.4f} ms, {by}) [{card}]",
-                  flush=True)
+                  f"{ms:.4f} ms at B={batch}, device {device:.4f} ms (bound {bound:.4f} ms, "
+                  f"{by}) [{card}]", flush=True)
     _build.FLAGS = base
     _build._LIB = None
     return 0

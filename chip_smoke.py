@@ -20,7 +20,10 @@ Phases (any failure raises, so the exit code is not 0):
    14l, a team of four, whose one-step launches are rows 14 and 7), and
    of the Fermat chain (row 5), the Fq2 square root, the final
    exponentiation's Fq12 inverse and Frobenius maps and the affine
-   conversion (one Fermat chain a block, which serves rows 1-5); every
+   conversion (one Fermat chain a block, which serves rows 1-5), of row
+   15's Fq2 product (the three-thread Fq2 step) and of the tower probe's
+   team chains (the Fq2 chains on three threads a lane, the Fq6 and Fq12
+   chains on six, one instance an op); every
    other kernel runs one thread a lane (every entry's numbers stay in
    bn254_tpu_torch/_build/build.log).  Then the Miller kernel's resident
    blocks an SM (the occupancy query).
@@ -45,6 +48,10 @@ Phases (any failure raises, so the exit code is not 0):
    square, the prepared Miller loop and its one-step forms, the fold and
    the Fq12 square, the prepared-G2 lines and theirs, the doubling and
    addition steps, also at B = 3, fewer lanes than a warp's five teams;
+   the tower probe's chains and row 15's Fq2 product also at B = 3,
+   fewer lanes than a warp's teams, and at 262144 (one call, its first
+   and last 4096 lanes against the plain version, then timed: row 15 and
+   the Fq2 chains, where one thread a lane fills the card);
    the Miller kernel over the pairing's 87 kinds, the Fermat chain, the
    Fq12 inverse, each Frobenius map and the double-and-add also at B = 3
    and at pairing_batch's B = 1, the Fq2 square root also at B = 3, the
@@ -56,11 +63,11 @@ Phases (any failure raises, so the exit code is not 0):
    each kernel (Fq, NAF, G1, mul, fq_mul, signed, Frobenius power 1),
    fq12_cyc_pow's binary digits (TPU row 12), the conjugation, the skewed
    MSM and the G2 variants of the group law's five and of the affine
-   conversion timed at the main batch (CUDA events; the plain version
-   once), beside the bound its inputs give and, for the step loops, the
-   square root and the affine conversion, the serial depth (products on
-   one lane's chain); the Miller kernel's line also gives the min and
-   max of its 10 timed calls.
+   conversion, and every op of the tower probe, timed at the main batch
+   (CUDA events; the plain version once), beside the bound its inputs
+   give and, for the step loops, the square root and the affine
+   conversion, the serial depth (products on one lane's chain); the
+   Miller kernel's line also gives the min and max of its 10 timed calls.
 3. Main path, with every launch and plain-call counter reset first:
    ``pairing`` on 16384 Jacobian pairs (z != 1) made by spec additions as
    bench.py makes them, 8 lanes checked against the spec pairing; the
@@ -141,7 +148,19 @@ Phases (any failure raises, so the exit code is not 0):
    operands), equal to its plain version bit for bit; the Fq chains equal
    to the spec's a * b^64 and a^(2^64) on every lane.  Prints each op's G
    Fq-products/s, its ns per product beside the rate kernel_cases.bound_ms
-   assumes, and the op's time as a kernel of its own.
+   assumes, the same from 10 calls enqueued behind a device sleep (the
+   host's dispatch hidden), and the op's time as a kernel of its own.
+   The chains run each op on the engine the main path runs it on (fq_mul
+   one thread a lane; fq2_mul, fq2_sqr the three-thread Fq2 step;
+   fq6_mul, the Fq12 ops the six-thread team).  Then row 15
+   (fq2_mul_fused) on its own at 16384 and 262144 lanes: the event time
+   between 10 back-to-back calls, the time of 10 calls enqueued behind a
+   device sleep, the kernel's device time from torch.profiler where the
+   trace holds its kernels (a session after phase 4's in one process
+   traced none on the card), and the bound; and the wrapper's host
+   microseconds a call split into its check, its output's allocation and
+   its launch (the stream read among it), beside the stream object and
+   entry lookup the launch path no longer pays.
 10. Point decompression, with the counters reset first:
    ``g1_from_compressed_batch`` on 16384 G1 and ``g2_from_compressed_batch``
    (subgroup check on) on 16384 G2 compressed points built on the card as
@@ -170,6 +189,7 @@ import ctypes
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -183,13 +203,20 @@ ROW_12 = "fq12_cyc_pow[binary]"     # TPU row 12: row 11's kernel on binary digi
 # timed beside each kernel's first variant
 TIMED = (ROW_12, "msm_accumulate[g1,skew]", "fq12_frob[conj]", "point_add[g2]",
          "point_double[g2]", "msm_combine[g2]", "point_mul[g2]", "glv_ladder[g2]",
-         "to_affine[g2]")
+         "to_affine[g2]") + tuple(f"chain_tower[{op}]" for op in (
+             "fq2_mul", "fq2_sqr", "fq6_mul", "fq12_sqr", "fq12_mul", "cyclo_sqr"))
 PTXAS = ("k_msm_bucket_sort", "k_msm_accumulate", "k_msm_bucket_reduce", "k_fq12_cyc_pow",
          "k_fq12_cyc_sqr",
          "k_miller_precompute", "k_fq12_mul", "k_fq_pow", "k_fq12_inv", "k_fq12_frob",
          "k_point_add", "k_point_double", "k_msm_combine", "k_point_mul", "k_glv_ladder",
-         "k_fq2_sqrt", "k_miller_loop", "k_g2_precompute", "k_to_affine")
+         "k_fq2_sqrt", "k_miller_loop", "k_g2_precompute", "k_to_affine",
+         "k_fq2_mul_fused", "k_chain_fq2", "k_chain_team")
 SPREAD = ("miller_precompute",)     # also the min and max of the timed reps (row 6)
+# timed once more at WIDE_B, where a one-op body shows past its wrapper's
+# host time and one thread a lane fills the card: row 15 and the Fq2 chains
+WIDE = ("fq2_mul_fused", "chain_tower[fq2_mul]", "chain_tower[fq2_sqr]")
+WIDE_B = 262144
+WIDE_SLICE = 4096                   # lanes at each end held against the plain version
 
 
 def require(ok, what: str):
@@ -207,7 +234,7 @@ def card_line() -> str:
 def ptxas_lines(log: str, kernels):
     """ptxas's registers, stack and shared memory of each entry whose name
     holds one of `kernels`, from nvcc's -Xptxas -v log (G1/G2 by the
-    template's Fq/Fq2)."""
+    template's Fq/Fq2, a probe team by its op, a chain by mul/sqr)."""
     out, entry, stack = [], None, {}
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -219,7 +246,10 @@ def ptxas_lines(log: str, kernels):
         elif "Used" in line and "registers" in line and entry:
             name = next((k for k in kernels if k in entry), None)
             if name:
-                field = "[Fq2]" if "Fq2" in entry else ("[Fq]" if "Fq" in entry else "")
+                op = re.search(r"(\d+)(Op\w+)", entry)
+                field = (f"[{op.group(2)[:int(op.group(1))]}]" if op
+                         else "[sqr]" if "ILb1E" in entry else "[mul]" if "ILb0E" in entry
+                         else "[Fq2]" if "Fq2" in entry else "[Fq]" if "Fq" in entry else "")
                 regs = line.split("Used")[1].split("registers")[0].strip()
                 smem = line.split("bytes smem")[0].split(",")[-1].strip() \
                     if "bytes smem" in line else "0"
@@ -330,7 +360,35 @@ def phase_kernels(dev):
                 "bound_by": bound_by, "library_ms": None}
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         print(line, flush=True)
+        if case.label in WIDE:
+            print(wide_line(case, dev), flush=True)
     return records
+
+
+def _slice_lanes(args, lo: int, hi: int):
+    """The args with every tensor cut to lanes lo:hi (its last axis)."""
+    return tuple(x[..., lo:hi].contiguous() if isinstance(x, torch.Tensor) else x for x in args)
+
+
+def wide_line(case, dev) -> str:
+    """The case at WIDE_B lanes: one call held against the plain version on
+    the first and last WIDE_SLICE lanes (tolerance 0), then timed beside
+    its bound."""
+    import numpy as np
+    from bn254_tpu_torch import kernel_cases as KC
+
+    args = case.make_args(np.random.default_rng(SEED), WIDE_B, dev)
+    got = case.kernel(*args)
+    for lo in (0, WIDE_B - WIDE_SLICE):
+        err = KC.max_abs_err(got[..., lo:lo + WIDE_SLICE],
+                             case.plain(*_slice_lanes(args, lo, lo + WIDE_SLICE)))
+        require(err == 0, f"{case.label} at B={WIDE_B}: lanes {lo}+ differ from the plain "
+                          f"version by {err}")
+    ms, queued = cuda_ms(lambda: case.kernel(*args), 10), queued_ms(lambda: case.kernel(*args))
+    bound_ms, bound_by = KC.bound_ms(*case.work(*args))
+    return (f"kernel {case.label:22s} B={WIDE_B}: max_abs_err 0 on lanes 0-{WIDE_SLICE - 1} "
+            f"and the last {WIDE_SLICE}; kernel {ms:.4f} ms ({queued:.4f} ms enqueued behind "
+            f"a device sleep), bound {bound_ms:.4f} ms ({bound_by})")
 
 
 def check_launches(path: str, kernels, launches, plain, absent=()):
@@ -913,11 +971,101 @@ def phase_prepared_miller(dev, ps, qs, card, records):
                                   "fq12_fold_line"))
 
 
-def phase_probes(card, records):
+def queued_ms(fn, reps: int = 10) -> float:
+    """ms a call of `reps` back-to-back calls enqueued behind a ~1 ms
+    device sleep: the host's dispatch hides behind the queue, so this is
+    the kernels' device time (with the gaps between launches)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, name: str, reps: int = 10):
+    """(mean device ms, count) of the CUDA kernels whose name holds
+    `name`, over `reps` calls of fn under torch.profiler after a warm-up
+    (one kernel a call); (None, count) where the trace holds fewer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    return (sum(us) / reps / 1e3 if len(us) == reps else None), len(us)
+
+
+def host_us(fn, n: int = 2000) -> float:
+    """Host microseconds a call of fn over n calls after a warm-up (the
+    enqueue, no synchronize inside)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / n
+    torch.cuda.synchronize()
+    return us
+
+
+def row15_lines(dev, card):
+    """Row 15 (fused.fq2_mul) on the lazy product's column extremes, at
+    the one-op batch and at WIDE_B: the event time between back-to-back
+    calls, the kernel's device time (torch.profiler) and the bound; then
+    the wrapper's host microseconds a call at the one-op batch, split into
+    its check, its output's allocation and its launch (the stream read
+    among it), beside the two costs the launch path no longer pays."""
+    import numpy as np
+    from bn254_tpu_torch import _build
+    from bn254_tpu_torch import fused as FU
+    from bn254_tpu_torch import kernel_cases as KC
+
+    case = next(c for c in KC.CASES if c.label == "fq2_mul_fused")
+    for batch in (N_MAIN, WIDE_B):
+        a, b = KC.fq2_extremes(np.random.default_rng(SEED), batch, dev)
+        event = cuda_ms(lambda: FU.fq2_mul(a, b), 10)
+        queued = queued_ms(lambda: FU.fq2_mul(a, b))
+        device, traced = kernel_device_ms(lambda: FU.fq2_mul(a, b), "k_fq2_mul_fused")
+        prof = (f"{device:.4f} ms" if device is not None
+                else f"not measured ({traced} of 10 kernels traced)")
+        bound, by = KC.bound_ms(*case.work(a, b))
+        print(f"row 15 fq2_mul_fused B={batch}: event {event:.4f} ms a call over 10 "
+              f"back-to-back calls, {queued:.4f} ms enqueued behind a device sleep, "
+              f"device {prof} (torch.profiler), bound {bound:.4f} ms ({by}) [{card}]",
+              flush=True)
+    a, b = KC.fq2_extremes(np.random.default_rng(SEED), N_MAIN, dev)
+    out = torch.empty_like(a)
+    ptrs = (a.data_ptr(), b.data_ptr(), out.data_ptr())
+    lib = _build.library()
+    split = (("wrapper", lambda: FU.fq2_mul(a, b)),
+             ("check", lambda: _build.check("fq2_mul_fused", N_MAIN, a.device, (a, (2,)),
+                                            (b, (2,)))),
+             ("empty_like", lambda: torch.empty_like(a)),
+             ("launch", lambda: _build.launch("fq2_mul_fused", N_MAIN, *ptrs)),
+             ("its stream read",
+              lambda: torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())),
+             ("no longer paid: current_stream().cuda_stream",
+              lambda: torch.cuda.current_stream().cuda_stream),
+             ("no longer paid: getattr of the entry", lambda: getattr(lib, "bn254_fq2_mul_fused")))
+    print(f"row 15 host us a call at B={N_MAIN}: "
+          + ", ".join(f"{name} {host_us(fn):.2f}" for name, fn in split) + f" [{card}]",
+          flush=True)
+
+
+def phase_probes(dev, card, records):
     """The probe path once (probe_mont and probe_tower at their defaults),
     with the counters reset around it; every chain and every one-op kernel
     call against its plain version and the Fq chains against spec ints.
-    Returns its launches."""
+    Then row 15's times (row15_lines).  Returns its launches."""
     from bn254_tpu_torch import counts
     from bn254_tpu_torch import kernel_cases as KC
     from bn254_tpu_torch import mont_kernels as MK
@@ -958,18 +1106,26 @@ def phase_probes(card, records):
     print(f"probe path: {len(checks)} chains and one-op kernel calls = plain versions bit "
           f"for bit; chain_mont = "
           f"a * b^{chain} and a^(2^{chain}) on all {mont['batch']} lanes [{card}]", flush=True)
+    run = {"chain_mont": PB.chain_mont, "chain_tower": PB.chain_tower}
     for name, res in (("chain_mont", mont), ("chain_tower", tower)):
         for op, rec in res["ops"].items():
+            a_op, b_op = (rec["a"], rec["b"]) if name == "chain_tower" else (mont["a"], mont["b"])
+            queued = queued_ms(lambda: run[name](op, a_op, b_op, res["chain"]))
             one = "none" if rec["one_op_ms"] is None else f"{rec['one_op_ms']:.4f} ms"
             # per product of the work the bound counts (2.5 for the lazy fq2_mul)
-            ns = rec["ms"] * 1e6 / (res["batch"] * res["chain"] * KC.body_products(op))
+            work = res["batch"] * res["chain"] * KC.body_products(op)
+            ns, ns_queued = rec["ms"] * 1e6 / work, queued * 1e6 / work
             print(f"probe {name}[{op}] B={res['batch']} chain={res['chain']}: "
                   f"{rec['ms']:.4f} ms = {rec['g_products_per_s']:.2f} G Fq-products/s, "
                   f"{ns:.5f} ns per product of the bound's work (the bound assumes "
                   f"{assumed_ns:.5f}: {KC.INSTR_PER_PRODUCT} instr / INT_OPS_PER_S; measured = "
-                  f"{ns / assumed_ns * KC.INSTR_PER_PRODUCT:.0f} instr-equivalents); one op "
-                  f"as its own kernel {one} [{card}]", flush=True)
-    return check_launches("probe", counts.PROBE_PATH, launches, plain)
+                  f"{ns / assumed_ns * KC.INSTR_PER_PRODUCT:.0f} instr-equivalents); enqueued "
+                  f"behind a device sleep {queued:.4f} ms = {ns_queued:.5f} ns = "
+                  f"{ns_queued / assumed_ns * KC.INSTR_PER_PRODUCT:.0f} instr-equivalents; one "
+                  f"op as its own kernel {one} [{card}]", flush=True)
+    path = check_launches("probe", counts.PROBE_PATH, launches, plain)
+    row15_lines(dev, card)
+    return path
 
 
 CODEC_N = 16384        # one pairing batch's worth of each side
@@ -1188,7 +1344,7 @@ def main():
     lap("GLV")
     miller_launches = phase_prepared_miller(dev, ps, qs, card, records)
     lap("prepared Miller")
-    probe_launches = phase_probes(card, records)
+    probe_launches = phase_probes(dev, card, records)
     lap("probes")
     codec_launches = phase_codec(dev, card, records)
     lap("codec")

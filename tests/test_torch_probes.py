@@ -23,7 +23,10 @@ from bn254_tpu_torch import fused as FU
 from bn254_tpu_torch import kernel_cases as KC
 from bn254_tpu_torch import limbs as L
 from bn254_tpu_torch import mont_kernels as MK
+from bn254_tpu_torch import probe_schedule as PS
 from bn254_tpu_torch import probes as PB
+from bn254_tpu_torch import team_schedule as TS
+import test_torch_tower as TT
 
 torch.set_num_threads(1)
 
@@ -164,22 +167,24 @@ def test_chain_tower_plain_vs_jax_bodies(monkeypatch, op):
     _same(PB.chain_tower(op, a, b, 3), _flat(x))
 
 
+@pytest.mark.parametrize("batch", [16, 3])
 @pytest.mark.parametrize("label", [c.label for c in KC.CASES if c.name in
                                    ("fq2_mul_fused", "fq2_sqr_fused", "chain_mont",
                                     "chain_tower")])
-def test_kernel_case_reaches_its_wrapper(monkeypatch, label):
-    """chip_smoke.py's case at a small batch: its wrapper's checks pass and
-    it launches once (launch stubbed), its plain version returns the
-    wrapper's shape, and the work gives a positive bound."""
+def test_kernel_case_reaches_its_wrapper(monkeypatch, label, batch):
+    """chip_smoke.py's case at a small batch (3: fewer lanes than a warp's
+    teams): its wrapper's checks pass and it launches once (launch
+    stubbed), its plain version returns the wrapper's shape, and the work
+    gives a positive bound."""
     case = next(c for c in KC.CASES if c.label == label)
-    args = case.make_args(np.random.default_rng(SEED + 6), 16, "cpu")
+    args = case.make_args(np.random.default_rng(SEED + 6), batch, "cpu")
     want = case.plain(*args)
     calls = []
     for mod in (FU, PB):
         monkeypatch.setattr(mod, "on_cuda", lambda t: True)
         monkeypatch.setattr(mod, "launch", lambda name, batch, *a: calls.append((name, batch)))
     got = case.kernel(*args)
-    assert calls == [(case.name, 16)]
+    assert calls == [(case.name, batch)]
     assert got.shape == want.shape and got.dtype == torch.int32
     products, nbytes = case.work(*args)
     ms, by = KC.bound_ms(products, nbytes)
@@ -272,3 +277,148 @@ def test_regcap_sweep_reads_the_entry_usage_and_needs_the_card(monkeypatch):
             == "148 registers, 1920 bytes stack, 8 bytes spill stores")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert RS.main([]) == 1
+
+
+# The team spellings of the probe's chains (csrc/probes.cu,
+# csrc/fq12_team.cuh).  The three-thread Fq2 step is modelled lane by lane
+# in Python ints, as the kernel computes it: thread k's operands chosen by
+# k, its 512-bit product, the shuffle exchange, the two word-by-word
+# reductions (bn254.cuh redc_wide, with its bounds asserted).
+
+_QINV32 = (-pow(Q, -1, 1 << 32)) % (1 << 32)
+_M32 = (1 << 32) - 1
+
+
+def _redc_wide(t: int) -> int:
+    """bn254.cuh redc_wide: T 2^-256 mod q, canonical, for T < q 2^256."""
+    assert 0 <= t < Q << 256
+    for i in range(8):
+        t += (((t >> (32 * i)) & _M32) * _QINV32 & _M32) * Q << (32 * i)
+    assert t < 1 << 512 and t % (1 << 256) == 0
+    r = t >> 256
+    assert r < 2 * Q
+    return r - Q if r >= Q else r
+
+
+def _team3_lane(a0, a1, b0, b1, sqr: bool):
+    """One lane's three-thread step on stored residues: (c0, c1)."""
+    if sqr:     # threads 0 and 2: (a0 + a1)(a0 - a1 mod q); thread 1: a0 a1, doubled
+        p = [(a0 + (a1 if k != 1 else 0)) * (a1 if k == 1 else (a0 - a1) % Q) for k in range(3)]
+        t = [p[k] << (k == 1) for k in range(3)]
+    else:       # thread k: a0 b0, a1 b1, (a0 + a1)(b0 + b1), the sums unreduced
+        x = [(a1 if k == 1 else a0) + (a1 if k == 2 else 0) for k in range(3)]
+        y = [(b1 if k == 1 else b0) + (b1 if k == 2 else 0) for k in range(3)]
+        p = [x[k] * y[k] for k in range(3)]
+        r = [p[1 if k == 0 else 0] for k in range(3)]        # the first shuffle
+        s = [p[2] for k in range(3)]                         # the second
+        t = [(s[k] if k == 1 else p[k]) + (0 if k == 1 else Q * Q) - r[k]
+             - (p[k] if k == 1 else 0) for k in range(3)]
+    assert all(v < 1 << 512 for v in p) and all(v >= 0 for v in t)
+    return _redc_wide(t[0]), _redc_wide(t[1])
+
+
+def team3_fq2(a, b=None):
+    """The three-thread Fq2 product (b given) or square on packed [2, 16, B]."""
+    ints = lambda t: [L._limbs_to_ints(t[c].numpy()) for c in range(2)]
+    (a0, a1), (b0, b1) = ints(a), ints(a if b is None else b)
+    out = [_team3_lane(*v, sqr=b is None) for v in zip(a0, a1, b0, b1)]
+    return torch.from_numpy(np.stack([L._ints_to_limbs([c[i] for c in out])
+                                      for i in range(2)]).astype(np.int32))
+
+
+@pytest.mark.parametrize("op", ["mul", "sqr"])
+def test_team3_fq2_step_equals_plain_and_jax(monkeypatch, op):
+    """The three-thread Fq2 step's model equals the plain lazy product
+    (FU._fq2_mul_lazy) and PF.kfq2_mul in its lazy spelling, or the plain
+    complex square (MK._fq2_sqr) and PF.kfq2_sqr, on the lazy product's
+    column extremes (stored and canonical q - 1, 1, 0 in every sign
+    pattern) and random lanes."""
+    monkeypatch.setattr(PF, "_LAZY_FQ2", True)
+    a, b = KC.fq2_extremes(np.random.default_rng(SEED), 64, "cpu")
+    K = _kctx()
+    if op == "mul":
+        got = team3_fq2(a, b)
+        assert torch.equal(got, FU._fq2_mul_lazy(a, b))
+        _same(got, _flat(PF.kfq2_mul(K, _nest(a), _nest(b))))
+    else:
+        got = team3_fq2(a)
+        assert torch.equal(got, MK._fq2_sqr(a))
+        _same(got, _flat(PF.kfq2_sqr(K, _nest(a))))
+
+
+def _probe_state(a, b=None):
+    """A lane's probe slots (probe_schedule.SLOT): a's Fq2 coefficients
+    from F0, then b's, the products zero."""
+    batch = a.shape[-1]
+    vals = list(a.view(-1, 2, 16, batch)) + ([] if b is None else list(b.view(-1, 2, 16, batch)))
+    zero = torch.zeros_like(vals[0])
+    return vals + [zero] * (PS.N_SLOTS - len(vals))
+
+
+def team_probe_step(op: str, a, b):
+    """One step of the probe's team spelling of `op` on packed values."""
+    if op == "fq_mul":
+        return L.mont_mul(a, b, MK.FQ_MOD)
+    if op in ("fq2_mul", "fq2_sqr"):
+        return team3_fq2(a, b if op == "fq2_mul" else None)
+    if op == "fq12_mul":
+        return TT.team_fq12_mul(a, b)
+    if op == "cyclo_sqr":
+        return TT.team_cyc_sqr(a)
+    rnd, n = (PS.FQ6_MUL, 3) if op == "fq6_mul" else (PS.SQR, 6)
+    state = _probe_state(a, b if op == "fq6_mul" else None)
+    TT.team_round(state, rnd, 0, PS.SLOT)
+    return torch.stack(state[:n]).reshape(a.shape)
+
+
+def test_fq6_round_equals_plain_and_jax(monkeypatch):
+    """probe_schedule.FQ6_MUL on the team_round model equals FU._mul6 and
+    PF.kfq6_mul (lazy spelling), with 0, 1 and q - 1 on the first lanes."""
+    monkeypatch.setattr(PF, "_LAZY_FQ2", True)
+    rng = np.random.default_rng(SEED + 5)
+    a, b = KC.residues(rng, 6, 8, "cpu"), KC.residues(rng, 6, 8, "cpu")
+    got = team_probe_step("fq6_mul", a, b)
+    assert torch.equal(got, FU._mul6(a.view(3, 2, 16, 8), b.view(3, 2, 16, 8)).reshape(6, 16, 8))
+    _same(got, _flat(PF.kfq6_mul(_kctx(), _nest(a), _nest(b))))
+
+
+@pytest.mark.parametrize("index", range(len(PS.ROUNDS)))
+def test_probe_rounds_are_race_free(index):
+    """Each probe round passes check_round for a team of six over the
+    probe's slots, one product pass and one combination pass, and the
+    generated header holds the rounds."""
+    rnd = PS.ROUNDS[index]
+    TS.check_round(rnd, TS.TEAM, PS.SLOT)
+    assert -(-len(rnd.muls) // TS.TEAM) <= 2 and len(rnd.lins) <= TS.TEAM
+    assert "#define BN254_PROBE_ROUNDS" in PS.header()
+    from bn254_tpu_torch import _build
+    assert PS.header() in _build.consts_header()
+
+
+def test_probe_round_check_refuses_a_race():
+    """check_round refuses the Fq6 round with a combination that writes a
+    product slot the others read, and a product that reads another's
+    output."""
+    bad = TS.Round(PS.FQ6_MUL.muls, PS.FQ6_MUL.lins + (TS.Comb("P0", TS.A("F0")),))
+    with pytest.raises(ValueError):
+        TS.check_round(bad, TS.TEAM, PS.SLOT)
+    bad = TS.Round((TS.Mul("F0", TS.A("F1"), TS.A("F3")), TS.Mul("P1", TS.A("F0"), TS.A("F4"))),
+                   ())
+    with pytest.raises(ValueError):
+        TS.check_round(bad, TS.TEAM, PS.SLOT)
+
+
+@pytest.mark.parametrize("op", list(PB.OPS))
+def test_team_chains_equal_plain_chains(op):
+    """Each op chained 3 times in the probe kernel's spelling (fq_mul one
+    thread a lane; fq2_mul and fq2_sqr the three-thread step; fq6_mul and
+    fq12_sqr their rounds on team_round; fq12_mul and cyclo_sqr the
+    six-thread team's products and coefficients) equals chain_tower_plain,
+    at B = 5 with 0, 1 and q - 1 on the first lanes."""
+    coords = PB.OPS[op][0]
+    rng = np.random.default_rng(SEED + 8)
+    a, b = KC.residues(rng, coords, 5, "cpu"), KC.residues(rng, coords, 5, "cpu")
+    x = a
+    for _ in range(3):
+        x = team_probe_step(op, x, b)
+    assert torch.equal(x, PB.chain_tower_plain(op, a, b, 3))
