@@ -109,7 +109,7 @@ def frob12_consts(power: int) -> list:
 
 def twist_consts() -> list:
     """The Fq2 factors (canonical int pairs) that give the Frobenius G2
-    bases from an affine Q (pairing._mul_by_q: x' = tx conj(x), y' = ty
+    bases from an affine Q (pairing_torch._mul_by_q: x' = tx conj(x), y' = ty
     conj(y)): tx, ty, then tx conj(tx) and ty conj(ty), which take Q to
     pi^2(Q) in one product, (x, y) -> (tx conj(tx) x, ty conj(ty) y)."""
     tx, ty = C.TWIST_MUL_BY_Q_X, C.TWIST_MUL_BY_Q_Y

@@ -305,7 +305,8 @@ __device__ __forceinline__ Fq2 team_fq2_mul(const Fq2& a, const Fq2& b) {
 // the complex square.  Every thread of the warp calls these (the
 // shuffles take the whole warp); base is the warp lane of the team's
 // thread 0.  Users: the probe's Fq2 chains (probes.cu k_chain_fq2) and
-// row 15 (fused.cu k_fq2_mul_fused).
+// row 15 (fused.cu k_fq2_mul_fused); team3_fq2_sqr_coeff also row 16's
+// pair of threads (fused.cu k_fq2_sqr_fused, k < 2 only).
 // ---------------------------------------------------------------------------
 
 constexpr int kTeam3 = 3, kTeam3Warps = 4, kTeam3Lanes = 32 / kTeam3 * kTeam3Warps;   // a block

@@ -8,8 +8,8 @@
 // prepared-G2 entry (k_g2_precompute), which replace its scan over rows 14
 // and 7.
 //
-// Two designs.  One thread a lane (rows 5, 16: k_fq_pow, k_fq2_sqr_fused;
-// and k_fq12_inv and the codec's Fq2 square root k_fq2_sqrt; k_fq12_frob
+// Two designs.  One thread a lane (row 5: k_fq_pow; and k_fq12_inv and
+// the codec's Fq2 square root k_fq2_sqrt; k_fq12_frob
 // runs one thread a coefficient): 128-thread
 // blocks, the ragged edge masked; a kernel reads its operands once, runs
 // the whole formula with every intermediate on the thread's registers and
@@ -28,7 +28,8 @@
 // five lanes to a warp, threads 30 and 31 idle; four in rows 14 and 7
 // (k_g2_precompute and its one-step launches), eight lanes to a warp;
 // three in row 15 (k_fq2_mul_fused: one Fq2 product, its three 512-bit
-// products exchanged by warp shuffles, no shared memory), ten.  The
+// products exchanged by warp shuffles, no shared memory), ten; two in row
+// 16 (k_fq2_sqr_fused: one output coefficient a thread), sixteen.  The
 // lane's Fq12 or G2 state and its product scratch sit in shared memory as
 // Fq2 slots, each thread computes its share of an op's Fq2 products, and
 // after a __syncwarp its share of the output coefficients, so no thread
@@ -282,7 +283,7 @@ __global__ void k_miller_precompute(const int32_t* __restrict__ kinds, int n,
   }
 }
 
-// pairing.precompute (mod.rs:701-728), which the JAX package runs as a
+// pairing_torch.precompute (mod.rs:701-728), which the JAX package runs as a
 // lax.scan over rows 14 (pallas_fused.py _call_impl("g2_dbl_step")) and 7
 // (_call_impl("g2_add_step")), then _mul_by_q twice and the 2 Frobenius
 // additions (bn254_tpu/pairing_jax.py:130-177): R = (qx, qy, 1), then per
@@ -435,19 +436,38 @@ __global__ void k_fq2_mul_fused(const int32_t* __restrict__ a, const int32_t* __
   if (t.active && t.k < 2) store(out, t.k, B, t.lane, c);
 }
 
-// pallas_fused.py _call_impl("fq2_sqr"): kfq2_sqr, the eager complex
-// square (two CIOS products), as row 4's kernel computes it.
+// pallas_fused.py _call_impl("fq2_sqr"): kfq2_sqr, the complex square,
+// on a pair of threads a lane: its two output coefficients are
+// independent, c0 = (a0 + a1)(a0 - a1) and c1 = 2 a0 a1, so thread k of
+// the pair loads coordinate k (16 lanes a warp, 4 bytes a word each:
+// coalesced), takes the other from its partner by one round of 8 warp
+// shuffles, and makes coefficient k with one 512-bit product and one
+// reduction (fq12_team.cuh team3_fq2_sqr_coeff, the three-thread step's
+// square), then stores it; 4 warps, 64 lanes a block, no idle thread.
+// Bound by its bytes, 256 per lane.  At 262144 lanes it took 0.0290 ms
+// (69 % of that bound), one step of the three-thread Fq2 step 0.0368 and
+// the one-thread complex square it replaced 0.0343-0.0345 (PERF.md).
+constexpr int kPairWarps = 4, kPairLanes = 32 / 2 * kPairWarps;   // a block
+
 __global__ void k_fq2_sqr_fused(const int32_t* __restrict__ a, int32_t* __restrict__ out,
                                 int B) {
-  int lane = lane_index();
-  if (lane >= B) return;
-  Fq2 x;
-  load(x, a, 0, B, lane);
-  fq2_sqr(x, x);
-  store(out, 0, B, lane, x);
+  const TeamThread t = team_thread<2>(kPairLanes, B);
+  Fq x{};
+  if (t.active) load(x, a, t.k, B, t.lane);
+  Fq y;                          // the other coordinate, the partner's
+  shfl_words(y.v, x.v, (threadIdx.x % 32) ^ 1);
+  const bool one = t.k == 1;
+  Fq2 v;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    v.c0.v[j] = one ? y.v[j] : x.v[j];
+    v.c1.v[j] = one ? x.v[j] : y.v[j];
+  }
+  const Fq c = team3_fq2_sqr_coeff(t.k, v);
+  if (t.active) store(out, t.k, B, t.lane, c);
 }
 
-// The prepared Miller loop (pairing.miller_loop, mod.rs:580-606), which
+// The prepared Miller loop (pairing_torch.miller_loop, mod.rs:580-606), which
 // the JAX package runs as one lax.scan over rows 13 (pallas_fused.py
 // _call_impl("fq12_sqr")) and 8 (_call_impl("fq12_fold_line")) inside one
 // XLA program: f = 1, then per step f = f^2 where the step's flag is set
@@ -670,7 +690,7 @@ int bn254_miller_precompute(const int32_t* kinds, int n, const int32_t* p, const
   return static_cast<int>(cudaGetLastError());
 }
 
-// the 87 lines of pairing.precompute in one launch; rows 7 and 14 as one
+// the 87 lines of pairing_torch.precompute in one launch; rows 7 and 14 as one
 // step of the same kernel
 int bn254_g2_precompute(const int32_t* kinds, int n, const int32_t* q, int32_t* lines, int B,
                         cudaStream_t stream) {
@@ -695,7 +715,8 @@ int bn254_fq2_mul_fused(const int32_t* a, const int32_t* b, int32_t* out, int B,
 }
 
 int bn254_fq2_sqr_fused(const int32_t* a, int32_t* out, int B, cudaStream_t stream) {
-  BN254_LAUNCH(k_fq2_sqr_fused, a, out);
+  k_fq2_sqr_fused<<<(B + kPairLanes - 1) / kPairLanes, 32 * kPairWarps, 0, stream>>>(a, out, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int bn254_fq12_mul(const int32_t* a, const int32_t* b, int32_t* out, int B,

@@ -490,7 +490,7 @@ def g2_add_step_plain(r, base):
 
 
 def _mul_by_q(x, y):
-    """The twist Frobenius of affine G2 coordinates (pairing._mul_by_q,
+    """The twist Frobenius of affine G2 coordinates (pairing_torch._mul_by_q,
     mod.rs:693-699): (tx conj(x), ty conj(y)), Fq2 [2, 16, B] each."""
     conj = lambda a: _s(a[0], _neg(a[1]), dim=-3)
     return MK._fq2_mul(_s(conj(x), conj(y)), _s(_const2(C.TWIST_MUL_BY_Q_X, x),
@@ -511,7 +511,7 @@ def _step_bases(q):
 
 
 def g2_precompute_plain(q, kinds):
-    """pairing.precompute's steps (mod.rs:701-728) over stacked tensors: R
+    """pairing_torch.precompute's steps (mod.rs:701-728) over stacked tensors: R
     = (qx, qy, 1), then per kind a doubling step or a mixed addition of its
     base (_dbl_step's and _add_step's formulas, _step_bases).  Returns the
     lines [n, 6, 16, B]."""
@@ -1094,7 +1094,8 @@ def fq2_mul(a, b):
 
 def fq2_sqr(a):
     """Complex Fq2 square [2, 16, B].  Kernel: csrc/fused.cu
-    k_fq2_sqr_fused, replacing pallas_fused.py _call_impl("fq2_sqr")."""
+    k_fq2_sqr_fused (a pair of threads a lane, one output coefficient a
+    thread), replacing pallas_fused.py _call_impl("fq2_sqr")."""
     if not on_cuda(a):
         return fq2_sqr_fused_plain(a)
     batch = a.shape[-1]
@@ -1118,7 +1119,7 @@ def fq12_sqr(a):
 
 
 def g2_precompute(q, kinds):
-    """The lines of pairing.precompute in one kernel: R = (qx, qy, 1), then
+    """The lines of pairing_torch.precompute in one kernel: R = (qx, qy, 1), then
     per kind a G2 doubling step (0) or a mixed addition of the kind's base
     (STEP_KINDS), and each step's raw line (ell_0, ell_vw, ell_vv).
 
@@ -1190,7 +1191,7 @@ def miller_loop(coeffs, px, py, flags):
     line, ell_vv scaled by px and ell_vw by py.
 
     coeffs: [n, 6, 16, B] (ell_0, ell_vw, ell_vv a step, as
-    pairing.precompute stacks them); px, py: [16, B]; flags: n square
+    pairing_torch.precompute stacks them); px, py: [16, B]; flags: n square
     flags, the same for every lane.  Returns f [12, 16, B].  Kernel:
     csrc/fused.cu k_miller_loop (six threads a lane over
     loop_schedule.py's rounds), serving rows 13 and 8 as

@@ -55,7 +55,7 @@ from . import probes as PB
 from . import team_schedule as TS
 from .convert import pack
 from .fields import FR
-from .pairing import _LINE_KINDS, _SQR_FLAGS
+from .pairing_torch import _LINE_KINDS, _SQR_FLAGS
 from .spec import constants as C
 from .spec import field as SF
 from .spec import group as SG
@@ -852,9 +852,11 @@ CASES = (
                FU.fq2_mul_lazy_plain, fq2_extremes,
                lambda a, b: (_per_lane(FQ2_MUL_LAZY_PRODUCTS, a), _io(_lanes(a), 6)),
                batches=(16384, 1000, 3)),
+    # a pair of threads a lane (3: fewer lanes than a warp's sixteen pairs)
     KernelCase("fq2_sqr_fused", "fq2_sqr_fused", _FU_CU, f"{_PF}:990", FU.fq2_sqr,
                FU.fq2_sqr_fused_plain, lambda rng, b, d: fq2_extremes(rng, b, d)[:1],
-               lambda a: (_per_lane(FQ2_SQR_PRODUCTS, a), _io(_lanes(a), 4))),
+               lambda a: (_per_lane(FQ2_SQR_PRODUCTS, a), _io(_lanes(a), 4)),
+               batches=(16384, 1000, 3)),
     *(KernelCase("chain_mont", f"chain_mont[{impl}]", _PR_CU, "scripts/bench_mont.py:39",
                  PB.chain_mont, PB.chain_mont_plain, probe_args("chain_mont", impl, 64),
                  probe_work, batches=(32768, 1000))

@@ -1,7 +1,7 @@
 """The prepared Miller loop's team schedule (csrc/fused.cu k_miller_loop).
 
-``pairing.miller_loop`` (mod.rs:580-606) starts at f = 1 and, for each of
-the 87 line-coefficient triples ``pairing.precompute`` made, squares f
+``pairing_torch.miller_loop`` (mod.rs:580-606) starts at f = 1 and, for each of
+the 87 line-coefficient triples ``pairing_torch.precompute`` made, squares f
 where the step's flag is set (64 steps), then folds the line into f with
 ell_vv scaled by px and ell_vw by py (fused._fold, 87 steps).  Six threads
 of one warp share a batch lane and run the Miller kernel's square round

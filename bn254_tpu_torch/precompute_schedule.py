@@ -1,6 +1,6 @@
 """The G2 line steps' team schedule (csrc/fused.cu k_g2_precompute).
 
-``pairing.precompute`` (mod.rs:701-728) walks R from Q through the 85
+``pairing_torch.precompute`` (mod.rs:701-728) walks R from Q through the 85
 scheduled steps (64 doublings, 21 additions of Q or -Q) and the 2
 Frobenius additions (pi(Q), then -pi^2(Q)), and keeps each step's raw line
 (ell_0, ell_vw, ell_vv): 87 lines.  Four threads of one warp share a

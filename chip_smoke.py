@@ -1,7 +1,8 @@
-"""Drive the PyTorch + CUDA port's six main paths, the batched reduced
+"""Drive the PyTorch + CUDA port's eight main paths, the batched reduced
 pairing, the Pippenger MSM, the GLV scalar multiplication, the
-prepared-G2 Miller loop, the throughput probes and the batched point
-decompression, once on one NVIDIA GPU and check them.
+prepared-G2 Miller loop, the throughput probes, the batched point
+decompression, the field inversions and the batched API over the scalar
+API's objects, once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -21,7 +22,8 @@ Phases (any failure raises, so the exit code is not 0):
    of the Fermat chain (row 5), the Fq2 square root, the final
    exponentiation's Fq12 inverse and Frobenius maps and the affine
    conversion (one Fermat chain a block, which serves rows 1-5), of row
-   15's Fq2 product (the three-thread Fq2 step) and of the tower probe's
+   15's Fq2 product (the three-thread Fq2 step), of row 16's Fq2 square
+   (a pair of threads a lane) and of the tower probe's
    team chains (the Fq2 chains on three threads a lane, the Fq6 and Fq12
    chains on six, one instance an op); every
    other kernel runs one thread a lane (every entry's numbers stay in
@@ -48,10 +50,11 @@ Phases (any failure raises, so the exit code is not 0):
    square, the prepared Miller loop and its one-step forms, the fold and
    the Fq12 square, the prepared-G2 lines and theirs, the doubling and
    addition steps, also at B = 3, fewer lanes than a warp's five teams;
-   the tower probe's chains and row 15's Fq2 product also at B = 3,
-   fewer lanes than a warp's teams, and at 262144 (one call, its first
-   and last 4096 lanes against the plain version, then timed: row 15 and
-   the Fq2 chains, where one thread a lane fills the card);
+   the tower probe's chains, row 15's Fq2 product and row 16's Fq2
+   square also at B = 3, fewer lanes than a warp's teams, and at 262144
+   (one call, its first and last 4096 lanes against the plain version,
+   then timed: rows 15 and 16 and the Fq2 chains, where one thread a lane
+   fills the card);
    the Miller kernel over the pairing's 87 kinds, the Fermat chain, the
    Fq12 inverse, each Frobenius map and the double-and-add also at B = 3
    and at pairing_batch's B = 1, the Fq2 square root also at B = 3, the
@@ -99,7 +102,8 @@ Phases (any failure raises, so the exit code is not 0):
    and planted infinity points, zero scalars, r - 1 and duplicate points;
    each result is checked projectively against (sum k_i a_i mod r) G from
    the spec, a_i the multiple lane i holds.  Then ``batch.msm_g1`` /
-   ``msm_g2`` on 64 random points against the spec's sum.  Every kernel
+   ``msm_g2`` on 64 random points (the scalar API's G1/G2 and Fr objects)
+   against the spec's sum.  Every kernel
    of the path must have launched, one to_affine and one Horner + lane
    fold call an MSM, no one-op field kernel, add or double, and no plain
    version may have run.
@@ -122,9 +126,10 @@ Phases (any failure raises, so the exit code is not 0):
    G1 and G2 at B = 32768 on msm_inputs' points and scalars (infinity
    points, k = 0, 1, r - 1, lambda, r - lambda planted), every lane
    checked projectively against the double-and-add ``groups.scalar_mul``
-   (one point_mul kernel) and 19 lanes against the spec; ``batch.scalar_mul_g1`` on 64 points
-   against the spec.  Then each kernel of the path (mont_mul for beta x,
-   point_add for p1 + p2, the ladder) against its plain version on the
+   (one point_mul kernel) and 19 lanes against the spec;
+   ``batch.scalar_mul_g1`` on 64 G1 and Fr objects against the spec.
+   Then each kernel of the path (mont_mul for beta x, point_add for p1 +
+   p2, the ladder) against its plain version on the
    path's own inputs, and ms per call and scalar-muls/s split into
    decompose + table and the ladder beside its bound and its serial
    depth (six rounds a step); the kernels line takes row 20's times from
@@ -177,11 +182,34 @@ Phases (any failure raises, so the exit code is not 0):
    parse, square root, y selection and (G2) subgroup check; the fq2_sqrt
    kernel is held to its plain version on the path's own x^3 + b2 at
    16384 lanes (tolerance 0) and timed there beside its bound.
+11. Inversions: the reference's sweeps (tests/test_reference_scale.py)
+   on the port's own inversions on the card, tolerance 0, one batched
+   call each with the counters reset around it: ``fields.FQ.inv`` and
+   ``FR.inv`` on a = 1..10,000 and -1..-10,000 (a a^-1 = 1), on zeros (0
+   maps to 0) and on 10,000 random a (a^-1 a = 1 and (a b) a^-1 = b);
+   ``tower.fq2_inv`` on a + i, a - i and a + (3k + 1) i for a = 1..2,000
+   and -1..-2,000, and on zeros.  Each check prints its lanes and the
+   kernels it launched, which must be exactly its list (Fq: fq_pow, and
+   mont_mul for the products; Fr: mont_sqr and mont_mul; Fq2 also
+   fq2_mul) with no plain version.
+12. The batched API over the scalar API's objects, with the counters
+   reset first: 16384 pairs (a_i P, b_i Q), the G1 points made by
+   ``batch.scalar_mul_g1`` and the G2 points by ``glv.scalar_mul_glv``,
+   infinity planted in one slot or both on a few lanes (the first and
+   the last among them).  ``batch.pairing_batch`` must equal the host
+   spec's e(P, Q)^(sum a_i b_i) over the finite lanes, and its 3-chunk
+   split the same Gt; ``batch.pairing_each`` on 64 sampled lanes (the
+   planted ones among them) must equal ``api.pairing``, and the product
+   of all its results ``pairing_batch``; the pairing path's kernels, five
+   Miller launches (one a chunk) and no plain version.  Then
+   ``pairing_batch``'s ms (CUDA events, mean of 3 after a warm-up), its
+   device part on tensors and the host conversion (objects -> tensors,
+   16384 Fq12 -> Gt).
 
 Each main path must launch every kernel it uses and no plain version.
 The "all phases" line gives the run's seconds and each phase's.
 The line before the last is the kernels' JSON record (launches summed
-over the six paths); the last line is {"ok": true, "device": {...}}.
+over the eight paths); the last line is {"ok": true, "device": {...}}.
 Needs one CUDA card; fails without one.
 """
 
@@ -210,11 +238,12 @@ PTXAS = ("k_msm_bucket_sort", "k_msm_accumulate", "k_msm_bucket_reduce", "k_fq12
          "k_miller_precompute", "k_fq12_mul", "k_fq_pow", "k_fq12_inv", "k_fq12_frob",
          "k_point_add", "k_point_double", "k_msm_combine", "k_point_mul", "k_glv_ladder",
          "k_fq2_sqrt", "k_miller_loop", "k_g2_precompute", "k_to_affine",
-         "k_fq2_mul_fused", "k_chain_fq2", "k_chain_team")
+         "k_fq2_mul_fused", "k_fq2_sqr_fused", "k_chain_fq2", "k_chain_team")
 SPREAD = ("miller_precompute",)     # also the min and max of the timed reps (row 6)
 # timed once more at WIDE_B, where a one-op body shows past its wrapper's
-# host time and one thread a lane fills the card: row 15 and the Fq2 chains
-WIDE = ("fq2_mul_fused", "chain_tower[fq2_mul]", "chain_tower[fq2_sqr]")
+# host time and one thread a lane fills the card: rows 15 and 16 and the
+# Fq2 chains
+WIDE = ("fq2_mul_fused", "fq2_sqr_fused", "chain_tower[fq2_mul]", "chain_tower[fq2_sqr]")
 WIDE_B = 262144
 WIDE_SLICE = 4096                   # lanes at each end held against the plain version
 
@@ -409,7 +438,7 @@ def phase_main_path(dev, ps, qs):
     import golden
     from bn254_tpu_torch import convert, counts
     from bn254_tpu_torch import groups as G
-    from bn254_tpu_torch import pairing as P
+    from bn254_tpu_torch import pairing_torch as P
     from bn254_tpu_torch import tower as T
     from bn254_tpu_torch.spec import field as SF
     from bn254_tpu_torch.spec import group as SG
@@ -497,13 +526,13 @@ def device_busy(fn):
 def frobenius_tail_route(qa, pa, checks=None):
     """The Miller layer as it ran before the Frobenius tail moved into the
     Miller kernel: the kernel over the 85 scheduled kinds, the bases Q1 =
-    pi(Q), Q2 = -pi^2(Q) by tower ops (pairing._frobenius_points), then a
+    pi(Q), Q2 = -pi^2(Q) by tower ops (pairing_torch._frobenius_points), then a
     one-step g2_add_step and fq12_fold_line launch for each.  With
     `checks`, each addition and fold is appended there as (name, kernel's
     result, plain version's result on the same inputs).  Returns f
     [12, 16, B]."""
     from bn254_tpu_torch import fused as FU
-    from bn254_tpu_torch import pairing as P
+    from bn254_tpu_torch import pairing_torch as P
     from bn254_tpu_torch.convert import pack
 
     px, py = pa
@@ -528,7 +557,7 @@ def phase_timing(dev, ps, qs, card, records):
     from bn254_tpu_torch import fused as FU
     from bn254_tpu_torch import groups as G
     from bn254_tpu_torch import kernel_cases as KC
-    from bn254_tpu_torch import pairing as P
+    from bn254_tpu_torch import pairing_torch as P
     from bn254_tpu_torch import tower as T
     from bn254_tpu_torch.convert import pack
 
@@ -619,6 +648,7 @@ def msm_inputs(K, dev, n: int, rng):
 def phase_msm(dev):
     """The MSM path once, with the counters reset around it."""
     import numpy as np
+    from bn254_tpu_torch import api as A
     from bn254_tpu_torch import batch as BA
     from bn254_tpu_torch import counts
     from bn254_tpu_torch import groups as G
@@ -630,20 +660,21 @@ def phase_msm(dev):
     inputs = {K: msm_inputs(K, dev, MSM_SIZES[K.COORDS], rng) for K in (G.G1, G.G2)}
     rnd = random.Random(SEED + 3)
     small = {}
-    for K, (ops, gen) in ((G.G1, SG.G1_PARAMS[:2]), (G.G2, SG.G2_PARAMS[:2])):
+    for K, (ops, gen), cls in ((G.G1, SG.G1_PARAMS[:2], A.G1), (G.G2, SG.G2_PARAMS[:2], A.G2)):
         g = (gen[0], gen[1], ops.one)
         pts = [SG.scalar_mul(g, rnd.randrange(1, R), ops) for _ in range(64)]
         pts[3] = None
         ks = [rnd.randrange(R) for _ in range(64)]
         ks[4], ks[5] = 0, R - 1
         pts[6] = pts[10]
-        small[K] = (pts, ks)
+        small[K] = (pts, ks, [cls.zero() if p is None else cls._wrap(p) for p in pts],
+                    [A.Fr(k) for k in ks])
 
     counts.reset()
     torch.cuda.synchronize()
     out = {K: M.msm(K, pts, k) for K, (pts, k, _, _) in inputs.items()}
-    small_out = {K: (BA.msm_g1 if K is G.G1 else BA.msm_g2)(pts, ks)
-                 for K, (pts, ks) in small.items()}
+    small_out = {K: (BA.msm_g1 if K is G.G1 else BA.msm_g2)(objs, frs)
+                 for K, (_, _, objs, frs) in small.items()}
     torch.cuda.synchronize()
     launches, plain = dict(counts.launches), dict(counts.plain_calls)
 
@@ -654,14 +685,15 @@ def phase_msm(dev):
         got = G.decode_points(K, out[K])[0]
         require(SG.eq(got, want, ops),
                 f"msm G{K.COORDS} n={len(mult)} differs from (sum k_i a_i) G")
-        pts, ks = small[K]
+        pts, ks, _, _ = small[K]
         want = SG.zero(ops)
         for p, k in zip(pts, ks):
             if p is not None:
                 want = SG.add(want, SG.scalar_mul(p, k, ops), ops)
-        require(SG.eq(small_out[K], want, ops), f"64-point msm G{K.COORDS} differs from the spec")
+        require(SG.eq(small_out[K].p, want, ops),
+                f"64-point msm G{K.COORDS} over the API's objects differs from the spec")
     print(f"MSM path: G1 n={MSM_SIZES[1]} and G2 n={MSM_SIZES[2]} = (sum k_i a_i) G; "
-          f"64-point G1 and G2 MSMs = spec sums", flush=True)
+          f"64-point G1 and G2 MSMs over the API's objects = spec sums", flush=True)
     require(launches["msm_combine"] == len(out) + len(small_out),
             f"{launches['msm_combine']} Horner + lane fold calls for "
             f"{len(out) + len(small_out)} MSMs")
@@ -781,6 +813,7 @@ def phase_glv(dev):
     plus k = 1, lambda, r - lambda) and ``batch.scalar_mul_g1`` on 64
     points.  Returns (launches, inputs)."""
     import numpy as np
+    from bn254_tpu_torch import api as A
     from bn254_tpu_torch import batch as BA
     from bn254_tpu_torch import convert, counts
     from bn254_tpu_torch import glv as GLV
@@ -806,7 +839,8 @@ def phase_glv(dev):
     counts.reset()
     torch.cuda.synchronize()
     out = {K: GLV.scalar_mul_glv(K, pts, k) for K, (pts, k, _, _) in inputs.items()}
-    small_out = BA.scalar_mul_g1(small_p, small_k)
+    small_out = BA.scalar_mul_g1([A.G1.zero() if p is None else A.G1._wrap(p) for p in small_p],
+                                 [A.Fr(k) for k in small_k])
     torch.cuda.synchronize()
     launches, plain = dict(counts.launches), dict(counts.plain_calls)
 
@@ -824,10 +858,10 @@ def phase_glv(dev):
             require(SG.eq(g, want, ops), f"GLV G{nc} lane {lane} differs from the spec")
     for p, k, g in zip(small_p, small_k, small_out):
         want = SG.zero(ops1) if p is None else SG.scalar_mul(p, k, ops1)
-        require(SG.eq(g, want, ops1), "batch.scalar_mul_g1 differs from the spec")
+        require(SG.eq(g.p, want, ops1), "batch.scalar_mul_g1 differs from the spec")
     print(f"GLV path: G1 and G2 at B={GLV_N}, every lane = double-and-add, "
           f"{len(lanes)} lanes (edges: infinity, k = 0, 1, r - 1, lambda, r - lambda) = spec; "
-          f"batch.scalar_mul_g1 on 64 points = spec", flush=True)
+          f"batch.scalar_mul_g1 on 64 API objects = spec", flush=True)
     return check_launches("GLV", counts.GLV_PATH, launches, plain), inputs
 
 
@@ -882,7 +916,7 @@ def one_step_lines(qa, dev):
     one-step launches, the Frobenius bases on row 3 (pairing's
     _frobenius_points) -> [87, 6, 16, B]."""
     from bn254_tpu_torch import fused as FU
-    from bn254_tpu_torch import pairing as P
+    from bn254_tpu_torch import pairing_torch as P
     from bn254_tpu_torch import tower as T
     from bn254_tpu_torch.convert import pack
 
@@ -909,7 +943,7 @@ def phase_prepared_miller(dev, ps, qs, card, records):
     from bn254_tpu_torch import fused as FU
     from bn254_tpu_torch import groups as G
     from bn254_tpu_torch import kernel_cases as KC
-    from bn254_tpu_torch import pairing as P
+    from bn254_tpu_torch import pairing_torch as P
     from bn254_tpu_torch import tower as T
     from bn254_tpu_torch.convert import pack
     from bn254_tpu_torch.spec import group as SG
@@ -1299,6 +1333,186 @@ def phase_codec(dev, card, records):
     return launches
 
 
+INV_N = 10000          # tests/test_reference_scale.py's sweeps (fields/tests.rs:4-21, :88-95)
+INV_FQ2_N = 2000
+
+
+def inversion_checks(dev, n: int = INV_N, n_fq2: int = INV_FQ2_N):
+    """The reference-scale inversion sweeps on the port's own inversions
+    (fields.FQ.inv, FR.inv, tower.fq2_inv), each one batched call:
+    [(label, inputs, the kernels it launches, check)], check(*inputs) a
+    bool mask over the lanes.  Fq's inverse is one fq_pow launch, Fr's a
+    loop of mont_sqr and mont_mul launches; the checks' products are
+    mont_mul (Fq2: fq2_mul)."""
+    from bn254_tpu_torch import tower as T
+    from bn254_tpu_torch.fields import FQ, FR
+    from bn254_tpu_torch.spec.constants import Q
+
+    checks = []
+    rng = random.Random(0x1234)
+    for name, F in (("fq", FQ), ("fr", FR)):
+        p, inv = F.p, (("fq_pow",) if F is FQ else ("mont_sqr", "mont_mul"))
+        prod = ("fq_pow", "mont_mul") if F is FQ else inv     # the inverse and the products
+        up_down = F.encode(list(range(1, n + 1)) + [p - k for k in range(1, n + 1)], dev)
+        checks.append((f"{name}: a = 1..{n}, -1..-{n}: a a^-1 = 1", (up_down,),
+                       prod,
+                       lambda a, F=F: F.eq(F.mul(a, F.inv(a)), F.ones(a.shape[-1], a.device))))
+        checks.append((f"{name}: 0^-1 = 0", (F.zeros(4, dev),), inv,
+                       lambda z, F=F: F.is_zero(F.inv(z))))
+        a = F.encode([rng.randrange(1, p) for _ in range(n)], dev)
+        b = F.encode([rng.randrange(p) for _ in range(n)], dev)
+
+        def law(a, b, F=F):
+            inv_a = F.inv(a)
+            return (F.eq(F.mul(inv_a, a), F.ones(a.shape[-1], a.device))
+                    & F.eq(F.mul(F.mul(a, b), inv_a), b))
+
+        checks.append((f"{name}: {n} random a: a^-1 a = 1, (a b) a^-1 = b", (a, b),
+                       prod, law))
+    # a + i, a - i and a + (3k + 1) i for a = 1..n_fq2, -1..-n_fq2
+    c0 = list(range(1, n_fq2 + 1)) + [Q - k for k in range(1, n_fq2 + 1)]
+    c1 = [1] * len(c0) + [Q - 1] * len(c0) + [3 * k + 1 for k in range(len(c0))]
+    x = T.fq2_encode(zip(c0 * 3, c1), dev)
+    checks.append((f"fq2: a + i, a - i, a + (3k + 1) i for a = 1..{n_fq2}, -1..-{n_fq2}: "
+                   f"a a^-1 = 1", x, ("mont_sqr", "fq_pow", "mont_mul", "fq2_mul"),
+                   lambda x0, x1: T.fq2_eq(T.fq2_mul((x0, x1), T.fq2_inv((x0, x1))),
+                                           T.fq2_ones(x0.shape[-1], x0.device))))
+    checks.append(("fq2: 0^-1 = 0", T.fq2_zeros(4, dev), ("mont_sqr", "fq_pow", "mont_mul"),
+                   lambda x0, x1: T.fq2_is_zero(T.fq2_inv((x0, x1)))))
+    return checks
+
+
+def phase_inversions(dev, card):
+    """The inversion sweeps on the card (inversion_checks), each with the
+    counters reset around it: every lane must hold, the check must launch
+    exactly its kernels and no plain version.  Returns the launches of
+    all the checks."""
+    from bn254_tpu_torch import counts
+
+    total = dict.fromkeys(counts.KERNELS, 0)
+    for label, inputs, kernels, check in inversion_checks(dev):
+        counts.reset()
+        ok, ms = cuda_once(lambda: check(*inputs))
+        launches, plain = dict(counts.launches), dict(counts.plain_calls)
+        lanes = inputs[0].shape[-1]
+        require(ok.shape == (lanes,) and bool(ok.all()),
+                f"inversion {label}: {int((~ok).sum())} of {lanes} lanes fail")
+        ran = {k: v for k, v in launches.items() if v}
+        require(sorted(ran) == sorted(kernels) and not any(plain.values()),
+                f"inversion {label}: launched {ran} and plain versions "
+                f"{ {k: v for k, v in plain.items() if v} }, want {kernels} and none")
+        print(f"inversion {label}: all {lanes} lanes hold, {ms:.2f} ms; launched "
+              f"{json.dumps(ran)} [{card}]", flush=True)
+        for k, v in ran.items():
+            total[k] += v
+    return total
+
+
+API_N = N_MAIN         # pairs of the api phase: one Miller launch's worth
+
+
+def api_pairs(dev, n: int = API_N):
+    """n pairs (a_i P, b_i Q) as the API's objects: the G1 points by
+    batch.scalar_mul_g1, the G2 points by glv.scalar_mul_glv, P and Q
+    multiples of the generators; infinity planted in the G1 slot, the G2
+    slot or both on a few lanes, the first and the last among them.
+    Returns (pairs, P, Q, a, b, the planted lanes)."""
+    from bn254_tpu_torch import api as A
+    from bn254_tpu_torch import batch as BA
+    from bn254_tpu_torch import glv as GLV
+    from bn254_tpu_torch import groups as G
+    from bn254_tpu_torch import msm as M
+    from bn254_tpu_torch.spec.constants import R
+
+    rng = random.Random(SEED + 9)
+    p, q = A.G1.one() * A.Fr(rng.randrange(1, R)), A.G2.one() * A.Fr(rng.randrange(1, R))
+    a = [rng.randrange(1, R) for _ in range(n)]
+    b = [rng.randrange(1, R) for _ in range(n)]
+    g1 = BA.scalar_mul_g1([p] * n, [A.Fr(k) for k in a], device=dev)
+    g2 = GLV.scalar_mul_glv(G.G2, G.encode_points(G.G2, [q.p] * n, dev),
+                            M.encode_scalars(b, dev))
+    g2 = [A.G2._wrap(x) for x in G.decode_points(G.G2, g2)]
+    g1_inf, g2_inf = {0, 1, n // 2, n - 2}, {n - 1, 2, n // 2}
+    for i in g1_inf:
+        g1[i] = A.G1.zero()
+    for i in g2_inf:
+        g2[i] = A.G2.zero()
+    return list(zip(g1, g2)), p, q, a, b, sorted(g1_inf | g2_inf)
+
+
+def phase_api(dev, card, n: int = API_N):
+    """The batched API over the scalar API's objects, with the counters
+    reset around it: batch.pairing_batch on n pairs with planted infinity
+    against e(P, Q)^(sum a_i b_i) over the finite lanes (the host spec
+    API), once more cut into 3 chunks (the same Gt); batch.pairing_each
+    on 64 sampled lanes (the planted ones among them) against
+    api.pairing, and the product of all its results against
+    pairing_batch.  Then pairing_batch's ms (CUDA events), its device part
+    on tensors and the host conversion (objects -> tensors, tensors ->
+    Gt).  Returns its launches."""
+    from bn254_tpu_torch import api as A
+    from bn254_tpu_torch import batch as BA
+    from bn254_tpu_torch import counts
+    from bn254_tpu_torch import pairing_torch as P
+    from bn254_tpu_torch import tower as T
+    from bn254_tpu_torch.spec.constants import R
+
+    pairs, p, q, a, b, planted = api_pairs(dev, n)
+    finite = [i for i in range(n) if i not in planted]
+    want = A.pairing(p, q).pow(A.Fr(sum(a[i] * b[i] for i in finite) % R))
+    sample = sorted(set(planted)
+                    | set(random.Random(SEED + 10).sample(finite, 64 - len(planted))))
+    chunk = BA.PAIRING_CHUNK
+
+    counts.reset()
+    torch.cuda.synchronize()
+    got = BA.pairing_batch(pairs, device=dev)
+    BA.PAIRING_CHUNK = -(-n // 3)
+    try:
+        got3 = BA.pairing_batch(pairs, device=dev)
+    finally:
+        BA.PAIRING_CHUNK = chunk
+    each = BA.pairing_each(pairs, device=dev)
+    torch.cuda.synchronize()
+    launches, plain = dict(counts.launches), dict(counts.plain_calls)
+
+    require(got == want, f"batch.pairing_batch on {n} pairs differs from e(P, Q)^(sum a_i b_i)")
+    require(got3 == got, "batch.pairing_batch in 3 chunks differs from one chunk")
+    require(len(each) == n, f"batch.pairing_each returned {len(each)} of {n}")
+    for i in sample:
+        require(each[i] == A.pairing(*pairs[i]), f"batch.pairing_each lane {i} differs from "
+                                                 f"api.pairing")
+    prod = A.Gt.one()
+    for g in each:
+        prod = prod * g
+    require(prod == got, "the product of batch.pairing_each differs from batch.pairing_batch")
+    print(f"api: batch.pairing_batch on {n} pairs ({len(planted)} with infinity planted) = "
+          f"e(P, Q)^(sum a_i b_i) over the finite lanes (host spec), = its 3-chunk split; "
+          f"batch.pairing_each on {len(sample)} sampled lanes = api.pairing, its product = "
+          f"pairing_batch", flush=True)
+    require(launches["miller_precompute"] == 1 + 3 + 1,
+            f"{launches['miller_precompute']} Miller launches for 5 chunks of pairs")
+    launches = check_launches("api", counts.PAIRING_PATH, launches, plain,
+                              absent=counts.TO_AFFINE_ONE_OPS + counts.FROBENIUS_TAIL_ONE_OPS)
+
+    g1, g2 = BA.pairs_in(pairs, dev)
+    total = cuda_ms(lambda: BA.pairing_batch(pairs, device=dev), 3)
+    device = cuda_ms(lambda: T.fq12_final_exponentiation(P.miller_loop_batch(g2, g1)), 3)
+    f, host = P.pairing(g1, g2), []
+    for fn in (lambda: BA.pairs_in(pairs, dev), lambda: BA.gt_out(f)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) / 3 * 1e3)
+    print(f"api B={n}: batch.pairing_batch {total:.2f} ms = {n / total * 1e3:.0f} pairings/s "
+          f"(CUDA events, host conversion included); its device part on tensors {device:.2f} "
+          f"ms; host conversion: objects -> tensors {host[0]:.2f} ms, {n} Fq12 -> Gt "
+          f"(pairing_each's) {host[1]:.2f} ms [{card}]", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this script runs the port on the card only")
@@ -1348,13 +1562,17 @@ def main():
     lap("probes")
     codec_launches = phase_codec(dev, card, records)
     lap("codec")
+    inversion_launches = phase_inversions(dev, card)
+    lap("inversions")
+    api_launches = phase_api(dev, card)
+    lap("api")
     print(f"all phases: {time.perf_counter() - t0:.0f} s from the build's start ("
           + ", ".join(f"{name} {t - laps[i][1]:.0f} s" for i, (name, t) in enumerate(laps[1:]))
           + ")", flush=True)
 
     paths = (launches, msm_launches, glv_launches, miller_launches, probe_launches,
-             codec_launches)
-    for name, rec in records.items():      # launches over the six main-path runs
+             codec_launches, inversion_launches, api_launches)
+    for name, rec in records.items():      # launches over the eight main-path runs
         rec["launches"] = sum(p[name] for p in paths)
     require(sorted(records) == sorted(counts.KERNELS), "a kernel has no comparison record")
     print(card)

@@ -16,6 +16,7 @@ from bn254_tpu import groups as JG
 from bn254_tpu import limbs as JL
 from bn254_tpu.spec import group as SG
 from bn254_tpu.spec.constants import R
+from bn254_tpu_torch import api as TA
 from bn254_tpu_torch import batch as BA
 from bn254_tpu_torch import convert, counts
 from bn254_tpu_torch import fused as FU
@@ -137,20 +138,22 @@ def test_scalar_mul_glv_vs_jax(group):
 
 
 def test_batch_scalar_mul_g1_on_cpu_equals_spec():
-    """The user entry on edge inputs: None (infinity), k = 0, 1, r - 1,
-    lambda, r - lambda, a scalar above r (reduced), a repeated point."""
+    """The user entry over the API's objects on edge inputs: G1.zero()
+    (infinity), k = 0, 1, r - 1, lambda, r - lambda, a scalar above r
+    (reduced by Fr), a repeated point."""
     ops = SG.G1_PARAMS[0]
     rng = random.Random(SEED + 1)
     p = _mul(rng.randrange(1, R), SG.G1_PARAMS)
     pts = [None, p, p, p, p, p, p, _mul(5, SG.G1_PARAMS)]
     ks = [3] + EDGES[:3] + EDGES[4:] + [R + 7, rng.randrange(R)]
-    out = BA.scalar_mul_g1(pts, ks, device="cpu")
-    assert len(out) == len(pts)
+    out = BA.scalar_mul_g1([TA.G1.zero() if pt is None else TA.G1._wrap(pt) for pt in pts],
+                           [TA.Fr(k) for k in ks], device="cpu")
+    assert len(out) == len(pts) and all(isinstance(g, TA.G1) for g in out)
     for g, pt, k in zip(out, pts, ks):
         want = SG.zero(ops) if pt is None else SG.scalar_mul(pt, k % R, ops)
-        assert SG.eq(g, want, ops)
+        assert SG.eq(g.p, want, ops)
     with pytest.raises(ValueError):
-        BA.scalar_mul_g1([p], [1, 2], device="cpu")
+        BA.scalar_mul_g1([TA.G1._wrap(p)], [TA.Fr(1), TA.Fr(2)], device="cpu")
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
@@ -209,7 +212,8 @@ def test_glv_path_reaches_every_kernel_with_valid_arguments(monkeypatch):
         K, _, params = GROUPS[group]
         pts, ks = _points_and_scalars(group, 3)
         GLV.scalar_mul_glv(K, G.encode_points(K, pts, "cpu"), M.encode_scalars(ks, "cpu"))
-    BA.scalar_mul_g1([None, _mul(3, SG.G1_PARAMS)], [5, 7], device="cpu")
+    BA.scalar_mul_g1([TA.G1.zero(), TA.G1._wrap(_mul(3, SG.G1_PARAMS))], [TA.Fr(5), TA.Fr(7)],
+                     device="cpu")
     assert sorted(k for k, v in counts.launches.items() if v) == sorted(counts.GLV_PATH)
     assert counts.launches["glv_ladder"] == 3
     assert not any(counts.plain_calls.values())

@@ -20,6 +20,7 @@ from bn254_tpu import msm as JM
 from bn254_tpu import pallas_fused as PF
 from bn254_tpu.spec import group as SG
 from bn254_tpu.spec.constants import R
+from bn254_tpu_torch import api as TA
 from bn254_tpu_torch import batch as BA
 from bn254_tpu_torch import convert, counts
 from bn254_tpu_torch import fused as FU
@@ -124,14 +125,16 @@ def _spec_sum(nc, pts, ks):
     return want
 
 
-def test_msm_g1_on_cpu_equals_spec(monkeypatch):
-    """batch.msm_g1(..., device="cpu") end to end at the default window
-    (c = 6: windows straddle limbs), with 128 lanes in place of 1024 to
-    keep the CPU run short."""
-    monkeypatch.setattr(M, "LANES", 128)
+def test_msm_g1_on_cpu_equals_spec():
+    """batch.msm_g1(..., device="cpu") end to end over the API's objects
+    (G1 with G1.zero() for infinity, Fr) at the default window (c = 6:
+    windows straddle limbs), with lanes=128 in place of 1024 to keep the
+    CPU run short."""
     pts, ks = _msm_case(1)
-    got = BA.msm_g1(pts, ks, device="cpu")
-    assert SG.eq(got, _spec_sum(1, pts, ks), PARAMS[1][0])
+    got = BA.msm_g1([TA.G1.zero() if p is None else TA.G1._wrap(p) for p in pts],
+                    [TA.Fr(k) for k in ks], device="cpu", lanes=128)
+    assert isinstance(got, TA.G1)
+    assert SG.eq(got.p, _spec_sum(1, pts, ks), PARAMS[1][0])
 
 
 def test_msm_g2_on_cpu_equals_spec():

@@ -26,7 +26,7 @@ from bn254_tpu_torch import convert, counts
 from bn254_tpu_torch import fused as FU
 from bn254_tpu_torch import groups as G
 from bn254_tpu_torch import mont_kernels as MK
-from bn254_tpu_torch import pairing as P
+from bn254_tpu_torch import pairing_torch as P
 from bn254_tpu_torch import tower as T
 import test_torch_tower as TT
 from test_torch_tower import assert_same, on_tape
@@ -144,7 +144,7 @@ def test_fq12_sqr_plain_vs_jax():
 
 def test_g2_dbl_step_plain_and_tower_steps_vs_jax():
     """Row 14's plain version against pairing_jax._doubling_step at 8
-    lanes, and the port's tower-op steps (pairing._doubling_step /
+    lanes, and the port's tower-op steps (pairing_torch._doubling_step /
     _addition_step, the third spelling) against pairing_jax's."""
     rng = random.Random(SEED + 9)
     r_np = tuple(_rand_fq2_np(rng, 8) for _ in range(3))

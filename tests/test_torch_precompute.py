@@ -2,7 +2,7 @@
 csrc/fused.cu k_g2_precompute) on the CPU: every round race-free for a team
 of four, and a model of the kernel (its start, then the rounds in its order,
 each step's line read from its slots) bit-equal to the plain version
-(fused.g2_precompute_plain: pairing.precompute's steps) on residue inputs
+(fused.g2_precompute_plain: pairing_torch.precompute's steps) on residue inputs
 with 0, 1 and q - 1 planted and on real G2 points, for the 87 steps and
 for the one-step launches of rows 14 and 7.  The model runs the Miller
 kernel's team model (tests/test_torch_tower.py team_round: every task of a
@@ -18,7 +18,7 @@ from bn254_tpu_torch import _build, convert
 from bn254_tpu_torch import fused as FU
 from bn254_tpu_torch import groups as G
 from bn254_tpu_torch import kernel_cases as KC
-from bn254_tpu_torch import pairing as P
+from bn254_tpu_torch import pairing_torch as P
 from bn254_tpu_torch import precompute_schedule as PS
 from bn254_tpu_torch import team_schedule as TS
 from bn254_tpu_torch.spec import constants as SC
@@ -163,7 +163,7 @@ def test_line_kernel_bounds_count_lazy_fq2_products(label):
 
 
 def test_precompute_is_one_kernel_call_of_views():
-    """pairing.precompute hands the 87 steps to one g2_precompute call and
+    """pairing_torch.precompute hands the 87 steps to one g2_precompute call and
     returns the (ell_0, ell_vw, ell_vv) tree as views of its one output
     (no copy of the lines); g2_precompute refuses a kind it has no base
     for."""

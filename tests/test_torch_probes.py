@@ -7,6 +7,7 @@ runs them) and against spec ints, on the same numpy inputs.  Exact."""
 import ast
 import os
 import random
+import re
 
 import jax
 import jax.numpy as jnp
@@ -324,6 +325,62 @@ def team3_fq2(a, b=None):
     out = [_team3_lane(*v, sqr=b is None) for v in zip(a0, a1, b0, b1)]
     return torch.from_numpy(np.stack([L._ints_to_limbs([c[i] for c in out])
                                       for i in range(2)]).astype(np.int32))
+
+
+def _pair_warps() -> int:
+    """csrc/fused.cu's kPairWarps: the warps of a k_fq2_sqr_fused block."""
+    src = open(os.path.join(os.path.dirname(FU.__file__), "csrc", "fused.cu")).read()
+    pattern = r"constexpr int kPairWarps = (\d+), kPairLanes = 32 / 2 \* kPairWarps;"
+    return int(re.search(pattern, src).group(1))
+
+
+def _pair_threads(batch: int):
+    """k_fq2_sqr_fused's index map, team_thread<2> over its launch's blocks
+    ((B + kPairLanes - 1) / kPairLanes of 32 kPairWarps threads): each
+    thread's (warp lane, lane, k, active)."""
+    warps = _pair_warps()
+    lanes = 16 * warps
+    for block in range(-(-batch // lanes)):
+        for tid in range(32 * warps):
+            team = (tid % 32) // 2
+            lane = block * lanes + (tid // 32) * 16 + team
+            yield tid % 32, lane, tid % 32 - 2 * team, team < 16 and lane < batch
+
+
+def pair_fq2_sqr(a):
+    """k_fq2_sqr_fused on packed [2, 16, B], warp by warp: thread k of a
+    lane's pair loads coordinate k (inactive threads 0), takes the other
+    from warp lane ^ 1 (the shuffle), and makes coefficient k: (a0 +
+    a1)(a0 - a1 mod q) or 2 a0 a1, reduced (team3_fq2_sqr_coeff)."""
+    batch = a.shape[-1]
+    coords = [L._limbs_to_ints(a[c].numpy()) for c in range(2)]
+    out = [[None] * batch for _ in range(2)]
+    threads = list(_pair_threads(batch))
+    for w in range(0, len(threads), 32):
+        warp = threads[w:w + 32]
+        x = [coords[k][lane] if active else 0 for _, lane, k, active in warp]
+        for (wl, lane, k, active), xk in zip(warp, x):
+            y = x[wl ^ 1]
+            a0, a1 = (xk, y) if k == 0 else (y, xk)
+            t = (a0 + a1) * ((a0 - a1) % Q) if k == 0 else (a0 * a1) << 1
+            if active:
+                out[k][lane] = _redc_wide(t)
+    return torch.from_numpy(np.stack([L._ints_to_limbs(c) for c in out]).astype(np.int32))
+
+
+@pytest.mark.parametrize("batch", [3, 1000, 16384])
+def test_pair_fq2_sqr_covers_every_lane_and_equals_plain(batch):
+    """Row 16's pair of threads a lane: its index map gives every lane of
+    the batch exactly its two threads, k = 0 and 1, and no active thread
+    past B, and the pair's coefficients equal fq2_sqr_fused_plain on the
+    lazy product's column extremes."""
+    seen = {}
+    for _, lane, k, active in _pair_threads(batch):
+        if active:
+            seen[(lane, k)] = seen.get((lane, k), 0) + 1
+    assert seen == {(lane, k): 1 for lane in range(batch) for k in (0, 1)}
+    a = KC.fq2_extremes(np.random.default_rng(SEED), batch, "cpu")[0]
+    assert torch.equal(pair_fq2_sqr(a), FU.fq2_sqr_fused_plain(a))
 
 
 @pytest.mark.parametrize("op", ["mul", "sqr"])
