@@ -154,7 +154,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256()
-    for f in sorted(CSRC.iterdir()):
+    for f in sorted(p for p in CSRC.iterdir() if p.is_file()):   # csrc/host/ is native.py's
         h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(consts_header().encode())

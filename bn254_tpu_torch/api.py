@@ -8,9 +8,12 @@ This layer is host-side (exact Python ints via the port's own
 For throughput, use the batched API over its objects (``batch``:
 ``pairing_batch``, ``pairing_each``, ``msm_g1``, ``msm_g2``,
 ``scalar_mul_g1``), which runs the same math on the card and is
-bit-exact against this layer.  The JAX package can hand the hot scalar
-paths to a native host library; the port has none, so every call here
-runs the spec.
+bit-exact against this layer.  The hot scalar paths (``G1/G2 * Fr``,
+``Gt.pow``, ``pairing``, ``pairing_batch``, ``miller_loop_batch``) run on
+the port's native host engine (``native``: C through ctypes, built at the
+first such call), as the JAX package's do on its own; with
+``BN254_NO_NATIVE=1`` set they run the spec.  The choice is read at each
+call, never at import, and a failed build raises.
 """
 
 import random as _random
@@ -22,6 +25,7 @@ from .spec import codec as _codec
 from .errors import (
     InvalidSliceLength, NotMemberFieldError, ToAffineConversion,
 )
+from . import native as _native
 
 __all__ = [
     "Fr", "Fq", "Fq2", "G1", "G2", "AffineG1", "AffineG2", "Gt",
@@ -327,6 +331,10 @@ class _Point:
         return self._wrap(_G.neg(self.p, self._K))
 
     def __mul__(self, fr):
+        if _native.enabled():
+            mul = (_native.g1_scalar_mul if self._K is _G.FqOps
+                   else _native.g2_scalar_mul)
+            return self._wrap(mul(self.p, fr.v))
         return self._wrap(_G.scalar_mul(self.p, fr.v, self._K))
 
     def __eq__(self, o):
@@ -467,6 +475,8 @@ class Gt:
         return cls(_F.FQ12_ONE)
 
     def pow(self, exp):
+        if _native.enabled():
+            return Gt(_native.fq12_pow(self.f, exp.v))
         return Gt(_F.fq12_pow(self.f, exp.v))
 
     def inverse(self):
@@ -493,18 +503,29 @@ class Gt:
 def pairing(p, q):
     """Reduced optimal-ate pairing e(p, q); infinity in either slot yields
     Gt::one (lib.rs:611-613)."""
+    if _native.enabled():
+        return Gt(_native.pairing(p.p, q.p))
     return Gt(_G.pairing(p.p, q.p))
 
 
 def pairing_batch(pairs):
     """Batch pairing, silently skipping infinity pairs; one shared final
     exponentiation (lib.rs:615-623)."""
+    if _native.enabled():
+        return Gt(_native.pairing_batch([p.p for p, _ in pairs],
+                                        [q.p for _, q in pairs]))
     return Gt(_G.pairing_batch([p.p for p, _ in pairs], [q.p for _, q in pairs]))
 
 
 def miller_loop_batch(pairs):
     """Un-exponentiated batch Miller loop over (G2, G1) pairs; raises
     ToAffineConversion on points at infinity (lib.rs:625-633)."""
+    if _native.enabled():
+        try:
+            return Gt(_native.miller_loop_batch(
+                [q.p for q, _ in pairs], [p.p for _, p in pairs]))
+        except ValueError:
+            raise ToAffineConversion("point at infinity")
     coeffs_list = []
     p_affines = []
     for q, p in pairs:

@@ -1,15 +1,18 @@
-"""Drive the PyTorch + CUDA port's eight main paths, the batched reduced
+"""Drive the PyTorch + CUDA port's eleven main paths, the batched reduced
 pairing, the Pippenger MSM, the GLV scalar multiplication, the
 prepared-G2 Miller loop, the throughput probes, the batched point
-decompression, the field inversions and the batched API over the scalar
-API's objects, once on one NVIDIA GPU and check them.
+decompression, the field inversions, the batched API over the scalar
+API's objects, the scalar API on the native host engine, the sharded
+pairing and MSM over torch.distributed and the shootout, once on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure raises, so the exit code is not 0):
 
 1. Print the card (nvidia-smi name and power limit), build every CUDA
-   kernel of counts.KERNELS (thirty-one) from bn254_tpu_torch/csrc/ and
+   kernel of counts.KERNELS (thirty-one) from bn254_tpu_torch/csrc/ (and
+   the native host engine from csrc/host/ with gcc, its seconds) and
    print the build's seconds and ptxas's registers, stack and shared
    memory of the MSM kernels, of the group law's five (one add, one
    double, the MSM's Horner + lane fold, the double-and-add and the GLV
@@ -205,11 +208,45 @@ Phases (any failure raises, so the exit code is not 0):
    ``pairing_batch``'s ms (CUDA events, mean of 3 after a warm-up), its
    device part on tensors and the host conversion (objects -> tensors,
    16384 Fq12 -> Gt).
+13. The native host engine (bn254_tpu_torch.native), with the counters
+   reset around its card part: its gcc build's seconds (phase 1 builds
+   it, since phases 12-15 make the API's objects on it), then hold it
+   against the spec: the golden pair (reduced pairing and Miller
+   value, tests/golden.py), 8 G1 and 8 G2 scalar muls with the scalars 0,
+   1 and r - 1 on random bases, pairing_batch with an infinity pair, and
+   the API's miller_loop_batch raising ToAffineConversion on infinity.
+   Its pairing_batch on 256 of the main path's pairs must equal
+   pairing_torch.pairing_batch on the card on the same pairs (the
+   pairing path's kernels, no plain version).  Prints the host ms of one
+   api.pairing on the engine and with BN254_NO_NATIVE (the spec), and of
+   the 256-pair batch; then runs examples.dh and examples.joux.
+14. Sharded, with the counters reset around the in-process part: a world
+   of 1 on NCCL in this process (a FileStore in a temporary directory):
+   parallel.pairing_batch_sharded on the main path's 16384 pairs must
+   equal pairing_torch.pairing_batch on them, value for value after
+   canonical decode, and parallel.msm_sharded on phase 5's G1 2^20 inputs
+   must equal msm.msm projectively (the pairing and MSM paths' kernels,
+   no plain version); both timed beside the unsharded call, and the
+   gather alone (CUDA events).  Then entry.dryrun_multichip(2): two
+   spawned ranks on the one card (gloo, host copies of the partials), 2
+   pairs and 4 points a rank against the spec; and the 16384 pairs as 2 x
+   8192 on two ranks, which must give the world-of-1 value on both, with
+   each rank's ms and its gather's ms.
+15. Shootout, with the counters reset around device mode:
+   shootout.device at N = 10000 (the reference's 20,000 pairings: GLV
+   ladders for a_i = s1^i G1 and b_i = s2^i G2 in chunks of 4096, the
+   last padded with scalar 0, a Miller product a chunk, one final
+   exponentiation an accumulator on the host), acc1 == acc2 and equal to
+   e(G1, G2)^(sum (s1 s2)^i) by the scalar API, its pairings/s beside
+   the card's name and power limit (CUDA events after a warm-up at the
+   same shapes; the GLV and Miller kernels, the product tree's fq12_mul,
+   no plain version); then host mode (the scalar API on the engine) at
+   N = 200 against the same oracle.
 
 Each main path must launch every kernel it uses and no plain version.
 The "all phases" line gives the run's seconds and each phase's.
 The line before the last is the kernels' JSON record (launches summed
-over the eight paths); the last line is {"ok": true, "device": {...}}.
+over the eleven paths); the last line is {"ok": true, "device": {...}}.
 Needs one CUDA card; fails without one.
 """
 
@@ -1513,12 +1550,235 @@ def phase_api(dev, card, n: int = API_N):
     return launches
 
 
+NATIVE_PAIRS = 256     # pairs of the native engine's batch against the card's
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean host ms of fn over reps calls (perf_counter)."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_native(dev, ps, qs, card):
+    """The native host engine: built, held against the spec and the
+    goldens, its 256-pair batch against the card's pairing_batch (the
+    counters reset around that call), timed against the spec, and the
+    examples run on it.  Returns the card call's launches."""
+    import golden
+    from bn254_tpu_torch import api as A
+    from bn254_tpu_torch import counts
+    from bn254_tpu_torch import groups as G
+    from bn254_tpu_torch import native as NV
+    from bn254_tpu_torch import pairing_torch as P
+    from bn254_tpu_torch import tower as T
+    from bn254_tpu_torch.errors import ToAffineConversion
+    from bn254_tpu_torch.examples import dh, joux
+    from bn254_tpu_torch.spec import group as SG
+    from bn254_tpu_torch.spec.constants import R
+
+    require(NV.enabled(), "BN254_NO_NATIVE is set: the native phase needs the engine")
+    print(f"native host engine: {NV.library_path().name}, "
+          + (f"built in {NV.build_seconds:.1f} s by this run" if NV.build_seconds
+             else "found built"), flush=True)
+    ops1, ops2 = SG.G1_PARAMS[0], SG.G2_PARAMS[0]
+    gen1 = (SG.G1_PARAMS[1][0], SG.G1_PARAMS[1][1], ops1.one)
+    gen2 = (SG.G2_PARAMS[1][0], SG.G2_PARAMS[1][1], ops2.one)
+    gp = SG.scalar_mul(gen1, golden.MILLER_G1_SCALAR, ops1)
+    gq = SG.scalar_mul(gen2, golden.MILLER_G2_SCALAR, ops2)
+    require(NV.pairing(gp, gq) == golden.REDUCED_PAIRING_EXPECTED,
+            "native golden reduced pairing differs")
+    require(NV.miller_loop_batch([gq], [gp]) == golden.MILLER_EXPECTED,
+            "native golden Miller value differs")
+    rng = random.Random(SEED + 11)
+    ks = [0, 1, R - 1] + [rng.randrange(R) for _ in range(5)]
+    for k in ks:
+        p = SG.scalar_mul(gen1, rng.randrange(1, R), ops1)
+        q = SG.scalar_mul(gen2, rng.randrange(1, R), ops2)
+        require(SG.eq(NV.g1_scalar_mul(p, k), SG.scalar_mul(p, k, ops1), ops1),
+                f"native G1 scalar mul by {k} differs from the spec")
+        require(SG.eq(NV.g2_scalar_mul(q, k), SG.scalar_mul(q, k, ops2), ops2),
+                f"native G2 scalar mul by {k} differs from the spec")
+    bp, bq = list(ps[:3]), list(qs[:3])
+    bp[1] = SG.zero(ops1)
+    require(NV.pairing_batch(bp, bq) == SG.pairing_batch(bp, bq),
+            "native pairing_batch with an infinity pair differs from the spec")
+    try:
+        A.miller_loop_batch([(A.G2.zero(), A.G1.one())])
+        raised = False
+    except ToAffineConversion:
+        raised = True
+    require(raised, "api.miller_loop_batch on infinity did not raise ToAffineConversion")
+    print(f"native vs spec: golden pair, {len(ks)} G1 and {len(ks)} G2 scalar muls (0, 1, "
+          f"r - 1 among them), pairing_batch with an infinity pair, miller_loop_batch "
+          f"raising ToAffineConversion: all agree", flush=True)
+
+    n = NATIVE_PAIRS
+    sp, sq = ps[:n], qs[:n]
+    g1, g2 = G.encode_points(G.G1, sp, dev), G.encode_points(G.G2, sq, dev)
+    want = NV.pairing_batch(sp, sq)
+    counts.reset()
+    torch.cuda.synchronize()
+    got = P.pairing_batch(g1, g2)
+    torch.cuda.synchronize()
+    launches, plain = dict(counts.launches), dict(counts.plain_calls)
+    require(T.fq12_decode(got)[0] == want,
+            f"native pairing_batch on {n} pairs differs from the card's")
+    print(f"native pairing_batch on {n} pairs = pairing_torch.pairing_batch on the card",
+          flush=True)
+    launches = check_launches("native", counts.PAIRING_PATH, launches, plain,
+                              absent=counts.TO_AFFINE_ONE_OPS + counts.FROBENIUS_TAIL_ONE_OPS)
+
+    a, b = A.G1.one() * A.Fr(rng.randrange(1, R)), A.G2.one() * A.Fr(rng.randrange(1, R))
+    native_ms = host_ms(lambda: A.pairing(a, b), 20)
+    batch_ms = host_ms(lambda: NV.pairing_batch(sp, sq), 3)
+    card_ms = cuda_ms(lambda: P.pairing_batch(g1, g2), 3)
+    os.environ["BN254_NO_NATIVE"] = "1"
+    try:
+        spec_ms = host_ms(lambda: A.pairing(a, b), 3)
+        spec_e = A.pairing(a, b)
+    finally:
+        del os.environ["BN254_NO_NATIVE"]
+    require(spec_e == A.pairing(a, b), "api.pairing on the spec differs from the engine")
+    print(f"native: api.pairing {native_ms:.3f} ms on the engine, {spec_ms:.2f} ms on the spec "
+          f"(BN254_NO_NATIVE), host clock; pairing_batch on {n} pairs {batch_ms:.2f} ms on the "
+          f"engine, {card_ms:.3f} ms on the card (CUDA events) [{card}]", flush=True)
+    dh.main(random.Random(SEED + 12))
+    joux.main(random.Random(SEED + 13))
+    return launches
+
+
+def _world_of_one(dev):
+    """A one-rank NCCL process group in this process, on a FileStore in a
+    temporary directory; returns the directory (remove it after
+    destroy_process_group)."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    tmp = tempfile.mkdtemp(prefix="bn254_world1_")
+    store = dist.FileStore(os.path.join(tmp, "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    return tmp
+
+
+def phase_sharded(dev, ps, qs, msm_g1, card):
+    """The sharded pairing and MSM: a world of 1 on NCCL in this process
+    against the unsharded calls (the counters reset around the sharded
+    ones), then dryrun_multichip(2) and 2 x 8192 pairs on two spawned
+    ranks sharing the card.  Returns the in-process launches."""
+    import shutil
+
+    import torch.distributed as dist
+    from bn254_tpu_torch import counts
+    from bn254_tpu_torch import entry as E
+    from bn254_tpu_torch import groups as G
+    from bn254_tpu_torch import msm as M
+    from bn254_tpu_torch import pairing_torch as P
+    from bn254_tpu_torch import parallel as PAR
+    from bn254_tpu_torch import tower as T
+    from bn254_tpu_torch.convert import pack, tree_map
+    from bn254_tpu_torch.spec import group as SG
+
+    g1, g2 = G.encode_points(G.G1, ps, dev), G.encode_points(G.G2, qs, dev)
+    pts, ks = msm_g1
+    want_e = T.fq12_decode(P.pairing_batch(g1, g2))[0]
+    want_m = G.decode_points(G.G1, M.msm(G.G1, pts, ks))[0]
+    ops1 = SG.G1_PARAMS[0]
+    tmp = _world_of_one(dev)
+    try:
+        counts.reset()
+        torch.cuda.synchronize()
+        got_e = PAR.pairing_batch_sharded(g1, g2)
+        got_m = PAR.msm_sharded(G.G1, pts, ks)
+        torch.cuda.synchronize()
+        launches, plain = dict(counts.launches), dict(counts.plain_calls)
+        require(T.fq12_decode(got_e)[0] == want_e,
+                f"pairing_batch_sharded (world 1) on {len(ps)} pairs differs from pairing_batch")
+        require(SG.eq(G.decode_points(G.G1, got_m)[0], want_m, ops1),
+                f"msm_sharded (world 1) on G1 {ks.shape[-1]} differs from msm.msm")
+        print(f"sharded, world of 1 (NCCL): pairing_batch_sharded on {len(ps)} pairs = "
+              f"pairing_batch; msm_sharded on G1 {ks.shape[-1]} = msm.msm (projectively)",
+              flush=True)
+        launches = check_launches("sharded", counts.PAIRING_PATH + counts.MSM_PATH, launches,
+                                  plain, absent=counts.TO_AFFINE_ONE_OPS)
+        sharded = (cuda_ms(lambda: PAR.pairing_batch_sharded(g1, g2), 3),
+                   cuda_ms(lambda: P.pairing_batch(g1, g2), 3),
+                   cuda_ms(lambda: PAR.all_gather_partials(pack(got_e)), 10),
+                   cuda_ms(lambda: PAR.msm_sharded(G.G1, pts, ks), 3),
+                   cuda_ms(lambda: M.msm(G.G1, pts, ks), 3),
+                   cuda_ms(lambda: PAR.all_gather_partials(pack(got_m)), 10))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"sharded, world of 1 (NCCL): pairing_batch_sharded {sharded[0]:.2f} ms "
+          f"(pairing_batch {sharded[1]:.2f} ms; the gather alone {sharded[2]:.4f} ms); "
+          f"msm_sharded G1 {ks.shape[-1]} {sharded[3]:.2f} ms (msm.msm {sharded[4]:.2f} ms; "
+          f"the gather alone {sharded[5]:.4f} ms) [{card}]", flush=True)
+
+    t0 = time.perf_counter()
+    E.dryrun_multichip(2)
+    print(f"dryrun_multichip(2): {time.perf_counter() - t0:.1f} s with the spawn", flush=True)
+    half = len(ps) // 2
+    shard = lambda t, lo, hi: tree_map(lambda a: a[..., lo:hi].contiguous(), t)
+    jobs = [[E.pairing_job(shard(g1, 0, half), shard(g2, 0, half), reps=3)],
+            [E.pairing_job(shard(g1, half, len(ps)), shard(g2, half, len(ps)), reps=3)]]
+    t0 = time.perf_counter()
+    results = E.run_ranks(2, jobs)
+    for r, (res,) in enumerate(results):
+        require(res["value"] == want_e, f"rank {r} of 2 x {half} pairs differs from the "
+                                        f"world-of-1 value")
+    print(f"sharded, 2 ranks on one card ({E.backend_for(2)}, host copies): 2 x {half} pairs = "
+          f"the world-of-1 value on both ranks; "
+          + "; ".join(f"rank {r} {res['ms']:.2f} ms, its gather {res['gather_ms']:.4f} ms"
+                      for r, (res,) in enumerate(results))
+          + f" ({time.perf_counter() - t0:.1f} s with the spawn) [{card}]", flush=True)
+    return launches
+
+
+SHOOTOUT_N = 10000     # the reference's full workload: 2 x 10000 pairings (shootout/run.py:3-4)
+SHOOTOUT_HOST_N = 200  # shootout/run.py's default
+
+
+def phase_shootout(dev, card):
+    """The shootout: device mode at N = 10000 with the counters reset
+    around it (both checks), then host mode at N = 200.  Returns device
+    mode's launches."""
+    from bn254_tpu_torch import counts
+    from bn254_tpu_torch import shootout as S
+
+    counts.reset()
+    torch.cuda.synchronize()
+    dt, acc = S.device(SHOOTOUT_N, device=dev)
+    torch.cuda.synchronize()
+    launches, plain = dict(counts.launches), dict(counts.plain_calls)
+    require(acc == S.oracle(SHOOTOUT_N), f"shootout N={SHOOTOUT_N}: the accumulator differs "
+                                         f"from e(G1, G2)^(sum (s1 s2)^i)")
+    print(card, flush=True)
+    print(f"shootout[device]: {2 * SHOOTOUT_N} pairings in {dt:.3f}s = "
+          f"{2 * SHOOTOUT_N / dt:.1f} pairings/s (reference crate: {S.REFERENCE_PER_S}/s); "
+          f"acc1 == acc2 = e(G1, G2)^(sum (s1 s2)^i); chunks of {S.chunk_size()}", flush=True)
+    launches = check_launches("shootout", counts.GLV_PATH + ("to_affine", "miller_precompute",
+                                                             "fq12_mul"),
+                              launches, plain, absent=counts.FROBENIUS_TAIL_ONE_OPS)
+    dt, acc = S.host(SHOOTOUT_HOST_N)
+    require(acc == S.oracle(SHOOTOUT_HOST_N), f"shootout host N={SHOOTOUT_HOST_N}: the "
+                                              f"accumulator differs from the oracle")
+    print(f"shootout[host]: {2 * SHOOTOUT_HOST_N} pairings in {dt:.2f}s = "
+          f"{2 * SHOOTOUT_HOST_N / dt:.1f} pairings/s on the native host engine (reference "
+          f"crate: {S.REFERENCE_PER_S}/s)", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this script runs the port on the card only")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path[:0] = [root, os.path.join(root, "tests")]
-    from bn254_tpu_torch import _build, counts
+    from bn254_tpu_torch import _build, counts, native
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -1529,6 +1789,11 @@ def main():
     _build.library()
     print(f"kernel build ({len(counts.KERNELS)} kernels): {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t1 = time.perf_counter()
+    native.load()       # phase 13's engine; the api objects of phases 12-15 run on it
+    print(f"native host engine ({native.CC} {' '.join(native.FLAGS)}): "
+          + (f"built in {native.build_seconds:.1f} s" if native.build_seconds
+             else f"found built, loaded in {time.perf_counter() - t1:.1f} s"), flush=True)
     for line in ptxas_lines((_build.BUILD_DIR / "build.log").read_text(), PTXAS):
         print(line, flush=True)
     blocks = ctypes.c_int(0)
@@ -1550,6 +1815,7 @@ def main():
     lap("MSM")
     for name, rec in phase_msm_timing(inputs, card)[1].items():          # G1 2^20
         records[name].update(rec)
+    msm_g1 = next(v[:2] for K, v in inputs.items() if K.COORDS == 1)     # for phase 14
     del inputs
     lap("MSM timing")
     glv_launches, inputs = phase_glv(dev)
@@ -1566,13 +1832,21 @@ def main():
     lap("inversions")
     api_launches = phase_api(dev, card)
     lap("api")
+    native_launches = phase_native(dev, ps, qs, card)
+    lap("native")
+    sharded_launches = phase_sharded(dev, ps, qs, msm_g1, card)
+    del msm_g1
+    lap("sharded")
+    shootout_launches = phase_shootout(dev, card)
+    lap("shootout")
     print(f"all phases: {time.perf_counter() - t0:.0f} s from the build's start ("
           + ", ".join(f"{name} {t - laps[i][1]:.0f} s" for i, (name, t) in enumerate(laps[1:]))
           + ")", flush=True)
 
     paths = (launches, msm_launches, glv_launches, miller_launches, probe_launches,
-             codec_launches, inversion_launches, api_launches)
-    for name, rec in records.items():      # launches over the eight main-path runs
+             codec_launches, inversion_launches, api_launches, native_launches,
+             sharded_launches, shootout_launches)
+    for name, rec in records.items():      # launches over the eleven main-path runs
         rec["launches"] = sum(p[name] for p in paths)
     require(sorted(records) == sorted(counts.KERNELS), "a kernel has no comparison record")
     print(card)

@@ -1,5 +1,6 @@
 """The port's scalar API (bn254_tpu_torch.api, re-exported by the package)
-against the JAX package's (bn254_tpu.api) on the same seeded inputs, the
+against the JAX package's (bn254_tpu.api) on the same seeded inputs, on
+the native host engine and on the spec, the
 batched API over its objects (batch.pairing_batch / pairing_each on the
 CPU) against the JAX package's host pairing, and chip_smoke.py's
 inversion phase (its inputs and the kernels each check launches, the
@@ -17,9 +18,11 @@ import torch
 import bn254_tpu
 import bn254_tpu.api as JA
 import bn254_tpu.errors as JE
+import bn254_tpu.native as JN
 import bn254_tpu_torch
 import bn254_tpu_torch.api as TA
 import bn254_tpu_torch.errors as TE
+import bn254_tpu_torch.native as TN
 from bn254_tpu.spec.constants import Q, R
 from bn254_tpu_torch import batch as BA
 from bn254_tpu_torch import counts
@@ -189,10 +192,24 @@ CASES = {f.__name__[5:]: f for f in (case_fields, case_sqrt, case_set_bit, case_
                                      case_compressed, case_gt, case_pairing)}
 
 
+@pytest.mark.parametrize("engine", ["native", "spec"])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_scalar_api_equals_the_jax_api(case):
+def test_scalar_api_equals_the_jax_api(case, engine, monkeypatch):
     """The same seeded inputs through bn254_tpu.api and bn254_tpu_torch.api
-    give the same canonical values and the same errors."""
+    give the same canonical values and the same errors, with each API on
+    its native host engine and with both on the spec (BN254_NO_NATIVE=1).
+    The JAX API's bridge (bn254_tpu/native.py) loads native/'s library,
+    which the tree does not build; it is handed the port's build of the
+    same C source and constants (tests/test_torch_native.py holds both
+    equal), so both sides run the engine's own Jacobian representatives."""
+    if engine == "native":
+        monkeypatch.delenv("BN254_NO_NATIVE", raising=False)
+        monkeypatch.setattr(JN, "_LIB", TN.load())
+        monkeypatch.setattr(JA, "_NATIVE", True)
+    else:
+        monkeypatch.setenv("BN254_NO_NATIVE", "1")
+        monkeypatch.setattr(JA, "_NATIVE", False)
+    assert TN.enabled() == (engine == "native")
     fn = CASES[case]
     got = canon(fn(TA, np.random.default_rng(SEED)))
     want = canon(fn(JA, np.random.default_rng(SEED)))
@@ -213,6 +230,10 @@ def test_package_reexports_the_api_and_the_errors():
     for name in ("BNError", "FieldError", "CurveError", "GroupError"):
         assert getattr(bn254_tpu_torch, name) is getattr(TE, name)
     assert bn254_tpu_torch.pairing is TA.pairing      # not the pairing_torch module
+
+
+def test_package_version_equals_the_jax_packages():
+    assert bn254_tpu_torch.__version__ == bn254_tpu.__version__ == "0.1.0"
 
 
 def test_batch_pairing_on_cpu_equals_the_jax_host_api(monkeypatch):
